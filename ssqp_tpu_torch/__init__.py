@@ -1,0 +1,52 @@
+"""ssqp_tpu_torch — the status-switching QP solver on PyTorch and CUDA.
+
+A port of ``ssqp_tpu`` (JAX/XLA/Pallas) to PyTorch, batch-first: every
+solver function works on ``(B, ...)`` tensors, shared problem leaves stay
+unbatched, and each ``lax.while_loop`` of the JAX package is a Python loop
+with a per-instance ``alive`` mask. On a CUDA tensor every conjugate-gradient
+solve runs the hand-written kernel in ``ops/csrc/cg.cu``; on a CPU tensor the
+same function runs its plain PyTorch version.
+
+Ported so far: the batched dense frontier-QP path (``solve_qp``,
+``solve_qp_batch``, ``solve_qp_batch_auto``'s plain protocol) — PDAS
+identification, the S-loop, the Phase-1 simplex fallback and dual attachment.
+"""
+
+from ssqp_tpu_torch.types import (
+    DN,
+    EO,
+    IN,
+    MC_DEGENERATE_BOUNDS,
+    MC_INFEASIBLE,
+    MC_NO_CONSTRAINTS,
+    MC_NOT_PSD,
+    MC_NUMERICAL,
+    MC_OK,
+    MC_REDUNDANT,
+    OE,
+    QP,
+    UP,
+    Result,
+    Settings,
+    make_qp,
+)
+
+__all__ = [
+    "IN", "DN", "UP", "OE", "EO",
+    "QP", "Settings", "Result", "make_qp",
+    "MC_OK", "MC_INFEASIBLE", "MC_NUMERICAL", "MC_REDUNDANT",
+    "MC_NO_CONSTRAINTS", "MC_DEGENERATE_BOUNDS", "MC_NOT_PSD",
+    "solve_qp", "solve_qp_batch", "solve_qp_batch_auto", "frontier_batch",
+]
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):  # lazy imports keep the package import light
+    if name == "solve_qp":
+        from ssqp_tpu_torch.solvers.ssqp import solve_qp
+        return solve_qp
+    if name in ("solve_qp_batch", "solve_qp_batch_auto", "frontier_batch"):
+        from ssqp_tpu_torch.parallel import batch
+        return getattr(batch, name)
+    raise AttributeError(f"module 'ssqp_tpu_torch' has no attribute {name!r}")
