@@ -20,11 +20,11 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = _CSRC.parents[2] / "build"  # listed in .gitignore
-_SOURCES = ("cg.cu",)
+_SOURCES = ("cg.cu", "chol.cu")
 # No --use_fast_math: it approximates divisions and flushes denormals,
 # which breaks the 1e-30 and finfo.tiny floors the solver relies on.
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -45,31 +45,50 @@ def _declare(lib: ctypes.CDLL) -> None:
         # Vt, vstride, inst, fm, dinv, B, tol2, X, rr, C, N, iters, stream
         fn.argtypes = [p, i64, p, p, p, p, p, p, p, i32, i32, i32, p]
         fn.restype = i32
+    for name in ("ssqp_chol_fits_smem_f32", "ssqp_chol_fits_smem_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i32, i32]  # n, K
+        fn.restype = i32
+    for name in ("ssqp_chol_solve_f32", "ssqp_chol_solve_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, i32, i32, i32, i32, p]  # A, X, B, n, K, smem, stream
+        fn.restype = i32
+
+
+def _run(cmds):
+    """Run the commands concurrently; raise with a failed one's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(c)}\n{out}\n{err}")
 
 
 def load() -> ctypes.CDLL:
-    """Return the kernel library, building it first if needed."""
+    """Return the kernel library, building it first if needed: one nvcc
+    process per source, started together, then one link."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
         srcs = [_CSRC / s for s in _SOURCES]
-        h = hashlib.sha256(" ".join(_FLAGS).encode())
+        h = hashlib.sha256(" ".join(_FLAGS + ("-shared",)).encode())
         for s in srcs:
             h.update(s.read_bytes())
         out = _BUILD / f"libssqp_kernels_{h.hexdigest()[:16]}.so"
         if not out.exists():
             out.parent.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-            os.close(fd)
-            cmd = [_nvcc(), *_FLAGS, "-o", tmp, *map(str, srcs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, out)
+            nvcc = _nvcc()
+            with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+                objs = [str(Path(tmpdir) / (s.stem + ".o")) for s in srcs]
+                _run([[nvcc, *_FLAGS, "-c", "-o", o, str(s)]
+                      for s, o in zip(srcs, objs)])
+                tmp = str(Path(tmpdir) / out.name)
+                _run([[nvcc, *_FLAGS, "-shared", "-o", tmp, *objs]])
+                os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         _declare(lib)
         _lib = lib

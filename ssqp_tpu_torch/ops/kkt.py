@@ -1,6 +1,6 @@
 """Padded equality-constrained KKT solves, batch-first (PyTorch).
 
-Counterpart of ``ssqp_tpu/ops/kkt.py`` (the frontier slice's subset). The
+Counterpart of ``ssqp_tpu/ops/kkt.py`` (the QP solver's subset). The
 working-set KKT system is solved at full (N, M+J) shape with mask padding:
 bound variables are pinned through an identity block
 ``Vp = f f' . V + diag(1-f)`` and inactive/purged rows through an identity
@@ -9,8 +9,9 @@ takes ``(B, ...)`` per-instance tensors; V and AG may be shared (unbatched)
 or per-instance.
 
 The CG solves go to the fused kernel (ops/cg.py) on CUDA tensors and to its
-plain PyTorch version on CPU tensors. The small (R, R) Schur systems use
-Cholesky through :func:`spd_solve`.
+plain PyTorch version on CPU tensors. The (R, R) Schur systems and the other
+batched SPD solves go through :func:`spd_solve`: the fused Cholesky kernel
+route (ops/chol.py) in float32 at n >= 16, a library Cholesky otherwise.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from ssqp_tpu_torch.ops.bmat import mm, mtv, mv
 from ssqp_tpu_torch.ops.cg import cg_padded_batch
+from ssqp_tpu_torch.ops.chol import chol_solve_batch
 
 
 def _chol_solve(A, rhs):
@@ -36,19 +38,17 @@ def spd_solve(A, rhs):
     """Solve the SPD system ``A x = rhs`` per instance: A (B, n, n), rhs
     (B, n) or (B, n, k).
 
-    Same dispatch rule as the JAX package: a CPU tensor, float64, or n < 16
-    use a Cholesky factorization (the reference's own XLA branch); a batched
-    float32 CUDA system with n >= 16 belongs to the fused Cholesky kernel,
-    which is not ported yet."""
-    n = A.shape[-1]
-    if A.is_cuda and A.dtype == torch.float32 and n >= 16:
-        raise NotImplementedError(
-            "spd_solve: batched float32 CUDA systems with n >= 16 need the "
-            "fused Cholesky kernel (ssqp_tpu/ops/pallas_chol.py::"
-            "_chol_solve_kernel), which is not ported yet")
+    Same dispatch rule as the JAX package's batched ``spd_solve``: a float32
+    system with n >= 16 goes to the fused Cholesky kernel route
+    (``ops/chol.py``: the CUDA kernel on a CUDA tensor, its plain version on
+    a CPU tensor); float64 or n < 16 use a library Cholesky factorization
+    (the JAX package's XLA branch)."""
     squeeze = rhs.dim() == A.dim() - 1
     r3 = rhs.unsqueeze(-1) if squeeze else rhs
-    X = _chol_solve(A, r3)
+    if A.dtype == torch.float32 and A.shape[-1] >= 16:
+        X = chol_solve_batch(A, r3)
+    else:
+        X = _chol_solve(A, r3)
     return X.squeeze(-1) if squeeze else X
 
 
@@ -146,6 +146,60 @@ def kkt_solve_cg(V, q, AG, bg, z, free, keep, cg_iters, rtol, ok_rtol=1e-3,
           & torch.isfinite(alphaL).all(dim=-1) & (relmax < ok_rtol))
     res = KKTResult(alpha, p, alphaL, gamma, ok)
     return (res, sol) if return_sol else res
+
+
+def kkt_solve_rhs_cg(V, AG, free, keep, r1, r2, cg_iters, rtol, ok_rtol=1e-3,
+                     ridge=0.0, x0=None, return_sol=False):
+    """Solve the fixed-active-set KKT system with an explicit right-hand side
+    (factorization-free block elimination on the padded operator of
+    :func:`kkt_solve_cg`): with ``f`` the free mask and ``k`` the kept rows,
+
+        free rows:      (V dx)_i + (AG' (k . dl))_i = r1_i
+        bound rows:      dx_i                       = r1_i
+        kept rows:      (AG dx)_j                   = r2_j
+        non-kept rows:   dl_j                       = r2_j
+
+    One iterative-refinement sweep of ``solvers/refine.py`` solves it against
+    a high-precision residual. Batched: free (B, N), keep (B, R), r1 (B, N),
+    r2 (B, R); V and AG shared or per-instance; ``x0`` (B, N, 1+R) warm
+    start. Returns ``(dx, dl, ok)`` (and the raw CG solution when
+    ``return_sol``)."""
+    dtype = r1.dtype
+    fm = free.to(dtype)
+    bm = 1.0 - fm
+    km = keep.to(dtype)
+    R = AG.shape[-2]
+
+    dxB = bm * r1
+    r1p = fm * (r1 - mv(V, dxB))
+    if R == 0:
+        sol, rel = cg_solve_padded(V, fm, r1p.unsqueeze(-1), cg_iters, rtol,
+                                   X0=x0)
+        dxF = sol[..., 0]
+        dl = torch.zeros((r1.shape[0], 0), dtype=dtype, device=r1.device)
+        relmax = _relmax(rel)
+    else:
+        r2p = km * (r2 - mv(AG, dxB))
+        Ap = AG * (km.unsqueeze(-1) * fm.unsqueeze(-2))
+        rhs = torch.cat([r1p.unsqueeze(-1), Ap.transpose(1, 2)], dim=2)
+        sol, rel = cg_solve_padded(V, fm, rhs, cg_iters, rtol, X0=x0)
+        relmax = _relmax(rel)
+        w, mT = sol[..., 0], sol[..., 1:]
+        C = torch.bmm(Ap, mT)
+        C = (C + C.transpose(1, 2)) / 2 \
+            + torch.diag_embed((1.0 - km) + ridge * km)
+        rhsC = torch.bmm(Ap, w.unsqueeze(-1)).squeeze(-1) - r2p
+        dlk = spd_solve(C, rhsC)
+        dxF = w - torch.bmm(mT, dlk.unsqueeze(-1)).squeeze(-1)
+        dl = km * dlk + (1.0 - km) * r2
+        rS = torch.bmm(C, dlk.unsqueeze(-1)).squeeze(-1) - rhsC
+        sS = 1.0 + rhsC.abs().amax(dim=-1)
+        relmax = torch.maximum(relmax, rS.abs().amax(dim=-1) / sS)
+
+    dx = fm * dxF + dxB
+    ok = (torch.isfinite(dx).all(dim=-1) & torch.isfinite(dl).all(dim=-1)
+          & (relmax < ok_rtol))
+    return (dx, dl, ok, sol) if return_sol else (dx, dl, ok)
 
 
 def kkt_allfree_shared(V, W, q, AG, bg, keep, ridge):

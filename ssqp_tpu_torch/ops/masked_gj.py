@@ -1,6 +1,6 @@
 """Masked Gauss-Jordan row purge with fixed shapes, batch-first (PyTorch).
 
-Counterpart of ``ssqp_tpu/ops/masked_gj.py`` (the slice's subset). A working
+Counterpart of ``ssqp_tpu/ops/masked_gj.py`` (the QP solver's subset). A working
 row is kept iff it is linearly independent of the kept rows before it; a
 dropped row whose eliminated right-hand side still exceeds ``tol`` marks the
 system inconsistent. The elimination runs a fixed number of steps over
@@ -81,16 +81,54 @@ def masked_gj_purge_col(A, b, row_mask, tol):
     return keep, bad_rows.any(dim=-1), bad_rows
 
 
+def masked_purge_qr(A, b, row_mask, tol):
+    """One-shot QR twin of :func:`masked_gj_purge` (same contract), used at
+    R >= 16 working rows, where the R-step sweep's sequential latency
+    dominates.
+
+    The greedy row-order keep rule ("keep iff independent of the kept rows
+    above") comes from one Householder QR of the masked rows transposed:
+    |R_jj| is the norm of row j's residual against the span of all previous
+    rows, and dropped rows never extend that span. Consistency of dropped
+    rows is a ridge-stabilized least-squares reconstruction of their
+    right-hand sides from the kept rows (an SPD solve through
+    ``ops/kkt.py::spd_solve``). The QR itself is a library call, as in the
+    JAX package, where it runs outside any Pallas kernel.
+
+    A (B, R, C) (or shared (R, C)), b (B, R), row_mask (B, R) bool.
+    Returns (keep (B, R), inconsistent (B,), bad_rows (B, R))."""
+    from ssqp_tpu_torch.ops.kkt import spd_solve
+
+    Bn, R = row_mask.shape
+    dtype = b.dtype
+    rm = row_mask.to(dtype)
+    Am = A * rm.unsqueeze(-1)  # (B, R, C)
+    Rm = torch.linalg.qr(Am.transpose(1, 2), mode="r")[1]  # (B, min(C,R), R)
+    diag = torch.diagonal(Rm, dim1=-2, dim2=-1).abs()
+    if diag.shape[-1] < R:  # more rows than columns: the tail cannot be kept
+        diag = torch.cat([diag, torch.zeros((Bn, R - diag.shape[-1]),
+                                            dtype=dtype, device=b.device)],
+                         dim=-1)
+    keep = (diag > tol) & row_mask
+    km = keep.to(dtype)
+    Ak = Am * km.unsqueeze(-1)
+    ridge = torch.finfo(dtype).eps
+    M1 = torch.bmm(Ak, Ak.transpose(1, 2)) \
+        + torch.diag_embed((1.0 - km) + ridge * km)
+    M1 = (M1 + M1.transpose(1, 2)) / 2
+    X = spd_solve(M1, torch.bmm(Ak, Am.transpose(1, 2)))  # (B, R, R)
+    pred_b = torch.bmm(X.transpose(1, 2), (km * b).unsqueeze(-1)).squeeze(-1)
+    dropped = row_mask & ~keep
+    bad_rows = dropped & ((b * rm - pred_b).abs() > tol)
+    return keep, bad_rows.any(dim=-1), bad_rows
+
+
 def select_purge(pivot: str, R: int):
     """The redundancy-purge flavor, with the JAX package's dispatch rule:
     ``Settings.pivot`` picks row- or column-pivoting; the row flavor uses
-    the one-shot QR twin (``masked_purge_qr``) at R >= 16 working rows,
-    which needs the fused Cholesky kernel and is not ported yet."""
+    the one-shot QR twin (:func:`masked_purge_qr`) at R >= 16 working rows.
+    The only place the rule lives: every engine that rebuilds a working set
+    (the S-loop, the refinement sweeps) purges through it."""
     if pivot != "row":
         return masked_gj_purge_col
-    if R >= 16:
-        raise NotImplementedError(
-            "select_purge: R >= 16 working rows use masked_purge_qr, which "
-            "needs the fused Cholesky kernel (ssqp_tpu/ops/pallas_chol.py::"
-            "_chol_solve_kernel), not ported yet")
-    return masked_gj_purge
+    return masked_purge_qr if R >= 16 else masked_gj_purge

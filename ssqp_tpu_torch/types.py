@@ -41,6 +41,18 @@ _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
 
 
+def check_device(device) -> torch.device:
+    """The device an entry point builds on: CUDA unless the caller asks for
+    another. Asking for CUDA where there is none raises here, never falls
+    back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port builds its problems on the card by "
+            "default; pass device='cpu' to build them on the CPU")
+    return device
+
+
 def as_torch_dtype(dtype) -> torch.dtype:
     """Accept a torch dtype or anything numpy understands as float32/64."""
     if isinstance(dtype, torch.dtype):
@@ -139,10 +151,12 @@ class QP:
 
     @classmethod
     def from_numpy(cls, V, A, G, q, b, g, d, u, N, M, J, mc=MC_OK, *,
-                   device="cpu", dtype=None) -> "QP":
+                   device="cuda", dtype=None) -> "QP":
         """Build a QP from the JAX package's problem fields given as numpy
         arrays (e.g. ``np.asarray(Q.V)``); leaves keep their shapes, so a
-        batched field stays batched."""
+        batched field stays batched. The leaves go to the card unless
+        ``device`` says otherwise."""
+        device = check_device(device)
         arrs = [np.asarray(a) for a in (V, A, G, q, b, g, d, u)]
         dt = as_torch_dtype(arrs[0].dtype if dtype is None else dtype)
         leaves = [torch.tensor(a, device=device).to(dt) for a in arrs]
@@ -182,13 +196,16 @@ def _prep_bounds(d, u, N, dtype):
 
 
 def make_qp(V, q=None, A=None, b=None, *, G=None, g=None, d=None, u=None,
-            dtype=None, check_psd=True, device="cpu") -> QP:
+            dtype=None, check_psd=True, device="cuda") -> QP:
     """Build a validated QP (validation in numpy, as ``ssqp_tpu.make_qp``).
 
     Defaults reproduce the portfolio problem ``min (1/2) z'Vz s.t. 1'z = 1,
     z >= 0``; V is symmetrized and PSD-checked (mc=-70 on failure), reversed
     bounds are swapped, d == u gives mc=-30 and a problem with neither
-    inequalities nor finite bounds mc=-20. ``dtype`` defaults to float64."""
+    inequalities nor finite bounds mc=-20. ``dtype`` defaults to float64.
+    The problem is built on the card unless ``device`` says otherwise;
+    without a card the default raises (pass ``device="cpu"``)."""
+    device = check_device(device)
     npdt = np.dtype(np.float64 if dtype is None else
                     (torch.empty(0, dtype=dtype).numpy().dtype
                      if isinstance(dtype, torch.dtype) else dtype))
@@ -231,6 +248,19 @@ class Result:
     status: Any
     lam: Any = None
     gamma: Any = None
+
+    @classmethod
+    def from_numpy(cls, x, S, status, lam=None, gamma=None, *,
+                   device="cuda") -> "Result":
+        """Carry a result across from numpy leaves (e.g. the JAX package's
+        ``Result`` through ``np.asarray``): x, lam and gamma keep their
+        float dtype, S becomes int8 and status int32. The leaves go to the
+        card unless ``device`` says otherwise."""
+        device = check_device(device)
+        f = lambda a: None if a is None else torch.tensor(np.asarray(a),
+                                                          device=device)
+        return cls(f(x), f(np.asarray(S, np.int8)),
+                   f(np.asarray(status, np.int32)), f(lam), f(gamma))
 
     def numpy(self) -> "Result":
         """The same result with numpy leaves (host copies)."""

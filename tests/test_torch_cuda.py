@@ -1,6 +1,6 @@
-"""The port on the card: the hand-written CUDA CG kernel against its plain
-PyTorch version, and the solver slice on CUDA tensors against the same slice
-on CPU tensors (where every CG runs the plain version).
+"""The port on the card: the hand-written CUDA kernels (CG, Cholesky) against
+their plain PyTorch versions, and the solver slice on CUDA tensors against
+the same slice on CPU tensors (where every kernel runs its plain version).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA device.
 The file imports no JAX, so it runs on a machine that has PyTorch only:
@@ -11,9 +11,17 @@ Tolerances:
   * kernel vs plain version on X: float32 5e-4 (tests/test_pallas_cg.py's
     bound), float64 1e-9; with the iteration cap hit (no row converges)
     float32 1e-4 and float64 1e-10, as tests/test_torch_cg.py;
+  * Cholesky kernel vs plain version (both on the card, SPD batches of
+    condition number 100): float32 1e-4 and float64 1e-10, relative to
+    max|X| (the same recurrence in another summation order); on non-PD
+    input neither returns a solution;
   * CUDA vs CPU solves, float64: status and S equal, x within 1e-9;
     float32: the same solved count, objective within 1e-5 relative, S equal
-    on at least 90% of instances.
+    on at least 90% of instances;
+  * the R >= 16 class through solve_qp_batch_auto with tail=4: float64
+    status and S equal, x within 1e-6 (the refinement's correction runs in
+    float32 on a CUDA tensor and in float64 on a CPU tensor, the JAX
+    package's rule); float32 all solved, objective within 1e-6 relative.
 """
 
 import dataclasses
@@ -23,7 +31,7 @@ import pytest
 import torch
 
 from ssqp_tpu_torch import Settings, make_qp
-from ssqp_tpu_torch.ops import cg
+from ssqp_tpu_torch.ops import cg, chol
 from ssqp_tpu_torch.parallel import batch as tb
 from ssqp_tpu_torch.solvers import ssqp as ts
 
@@ -130,7 +138,7 @@ def _frontier(dtype, N=32, B=16):
     mu = rng.uniform(0.0, 0.2, N)
     npdt = np.float32 if dtype == torch.float32 else np.float64
     Q = make_qp(V.astype(npdt), mu.astype(npdt), u=np.full(N, 4.0 / N, npdt),
-                dtype=npdt)
+                dtype=npdt, device="cpu")
     return Q, np.linspace(0.001, 2.0, B)
 
 
@@ -174,7 +182,8 @@ def _with_inequalities(seed, N=10, J=3):
     x_f = np.full(N, 1.0 / N)
     G = rng.standard_normal((J, N))
     g = G @ x_f + np.r_[np.zeros(2), rng.uniform(0.1, 0.5, J - 2)]
-    return make_qp(V, rng.standard_normal(N), G=G, g=g, u=np.full(N, 0.5))
+    return make_qp(V, rng.standard_normal(N), G=G, g=g, u=np.full(N, 0.5),
+                   device="cpu")
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -200,7 +209,8 @@ def test_per_instance_V_batch_on_card_matches_cpu(dev):
     for s in range(3):
         H = rng.standard_normal((12, 12))
         qps.append(make_qp(H @ H.T / 12 + 0.5 * np.eye(12),
-                           rng.uniform(-0.2, 0.0, 12), u=np.full(12, 0.3)))
+                           rng.uniform(-0.2, 0.0, 12), u=np.full(12, 0.3),
+                           device="cpu"))
     Qb = tb.stack_qps(qps)
     rc = tb.solve_qp_batch(Qb, Settings()).numpy()
     rg = tb.solve_qp_batch(Qb.to(dev), Settings()).numpy()
@@ -208,3 +218,115 @@ def test_per_instance_V_batch_on_card_matches_cpu(dev):
     np.testing.assert_array_equal(rg.status, rc.status)
     np.testing.assert_array_equal(rg.S, rc.S)
     np.testing.assert_allclose(rg.x, rc.x, rtol=0, atol=1e-9)
+
+
+def _spd(rng, B, n, kappa=100.0):
+    Qm, _ = np.linalg.qr(rng.standard_normal((B, n, n)))
+    A = (Qm * np.logspace(0.0, np.log10(kappa), n)) @ Qm.transpose(0, 2, 1)
+    return (A + A.transpose(0, 2, 1)) / 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [16, 110, 111, 256, 512])
+@pytest.mark.parametrize("kcol", ["0", "1", "3", "n"])
+def test_chol_kernel_matches_plain_version(dev, dtype, n, kcol):
+    """Shared-memory form (n <= ~160 in float32 with K <= n), the
+    device-memory form (n = 256, 512), odd n, K = 0."""
+    rng = np.random.default_rng(n)
+    K = n if kcol == "n" else int(kcol)
+    B = 3 if n < 256 else 2
+    A = torch.tensor(_spd(rng, B, n), dtype=dtype, device=dev)
+    R = torch.tensor(rng.standard_normal((B, n, K)), dtype=dtype, device=dev)
+    before = chol.LAUNCHES
+    Xk = chol.chol_solve_batch(A, R)
+    assert chol.LAUNCHES == before + (K > 0)
+    Xp = chol.chol_solve_reference(A, R)
+    torch.cuda.synchronize()
+    assert Xk.shape == (B, n, K) and Xk.dtype == dtype
+    if K:
+        tol = (1e-4 if dtype == torch.float32 else 1e-10) * float(
+            Xp.abs().max())
+        assert float((Xk - Xp).abs().max()) <= tol
+        Xd = Xk.double().cpu().numpy()
+        res = np.abs(A.double().cpu().numpy() @ Xd
+                     - R.double().cpu().numpy()).max()
+        assert res <= (1e-2 if dtype == torch.float32 else 1e-9)
+
+
+@pytest.mark.parametrize("n", [20, 300])
+def test_chol_kernel_on_non_pd_input(dev, n):
+    """A negative and a zero pivot: no fault, and neither the kernel nor the
+    plain version returns a solution; the good instance is solved."""
+    rng = np.random.default_rng(5)
+    A = _spd(rng, 3, n)
+    A[0, 5, 5] = -1.0
+    A[1, 7, :] = A[1, :, 7] = 0.0
+    R = rng.standard_normal((3, n, 2))
+    At = torch.tensor(A, dtype=torch.float32, device=dev)
+    Rt = torch.tensor(R, dtype=torch.float32, device=dev)
+    for X in (chol.chol_solve_batch(At, Rt), chol.chol_solve_reference(At, Rt)):
+        X = X.double().cpu().numpy()
+        for b in (0, 1):
+            bad = (not np.isfinite(X[b]).all()
+                   or np.abs(A[b] @ X[b] - R[b]).max() > 1e-2)
+            assert bad, b
+        assert np.abs(A[2] @ X[2] - R[2]).max() < 1e-3
+
+
+def test_chol_wrapper_checks(dev):
+    A = torch.eye(16, device=dev).expand(2, 16, 16).contiguous()
+    R = torch.ones((2, 16, 1), device=dev)
+    with pytest.raises(ValueError):
+        chol.chol_solve_batch(A.half(), R.half())
+    with pytest.raises(ValueError):
+        chol.chol_solve_batch(A, R.double())
+    with pytest.raises(ValueError):
+        chol.chol_solve_batch(A, R[:, :8])
+    before = chol.LAUNCHES
+    assert chol.chol_solve_batch(A[:0], R[:0]).shape == (0, 16, 1)
+    assert chol.LAUNCHES == before
+    X = chol.chol_solve_batch(A, R)
+    assert torch.equal(X, R)
+
+
+def _ineq_class(dtype, N=32, M=2, J=16, B=8, seed=4):
+    """BASELINE config 4's generator cut to N=32, M=2, J=16 (R = 18):
+    shared V, A, b, G, g, d, u; q ~ N(0, 1) per instance."""
+    rng = np.random.default_rng(seed)
+    H = rng.standard_normal((N, N))
+    V = H @ H.T / N + 0.5 * np.eye(N)
+    A = rng.standard_normal((M, N))
+    x0 = rng.uniform(0.0, 1.0, N)
+    G = rng.standard_normal((J, N))
+    g = G @ x0 + rng.uniform(0.1, 1.0, J)
+    q = rng.standard_normal((B, N))
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    Q = make_qp(V, np.zeros(N), A, A @ x0, G=G, g=g, d=x0 - 2.0, u=x0 + 2.0,
+                dtype=npdt, device="cpu")
+    return dataclasses.replace(Q, q=torch.tensor(q, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ineq_class_with_tail_on_card_matches_cpu(dev, dtype):
+    """R >= 16 on the card: the QR purge, the Cholesky kernel (float32), the
+    dropped-row multipliers and the tail refinement. In float64 the card
+    and the CPU run the same float64 search and no tail pass, so x agrees
+    to 1e-9; in float32, objectives within 1e-6 relative."""
+    Q = _ineq_class(dtype)
+    shared = ("V", "A", "G", "b", "g", "d", "u")
+    st = Settings.for_dtype(dtype)
+    rc = tb.solve_qp_batch_auto(Q, st, shared, tail=4).numpy()
+    cg.LAUNCHES = chol.LAUNCHES = 0
+    rg = tb.solve_qp_batch_auto(Q.to(dev), st, shared, tail=4).numpy()
+    assert cg.LAUNCHES > 0
+    # float64 searches stay below the tail's residual bound, so no float32
+    # correction (and no float32 SPD solve) runs there
+    assert (chol.LAUNCHES > 0) == (dtype == torch.float32)
+    assert (rc.status > 0).all() and (rg.status > 0).all()
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(rg.status, rc.status)
+        np.testing.assert_array_equal(rg.S, rc.S)
+        np.testing.assert_allclose(rg.x, rc.x, rtol=0, atol=1e-9)
+    else:
+        fc, fg = _obj(Q, rc.x), _obj(Q, rg.x)
+        assert (np.abs(fg - fc) <= 1e-6 * np.maximum(1.0, np.abs(fc))).all()

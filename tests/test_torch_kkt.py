@@ -156,10 +156,76 @@ def test_masked_purge_matches_jax(flavor):
 
 
 def test_select_purge_dispatch():
-    assert tg.select_purge("row", 3) is tg.masked_gj_purge
-    assert tg.select_purge("col", 40) is tg.masked_gj_purge_col
-    with pytest.raises(NotImplementedError, match="pallas_chol"):
-        tg.select_purge("row", 16)
+    for pivot, R in (("row", 3), ("row", 15), ("row", 16), ("row", 110),
+                     ("col", 40)):
+        j, t = jg.select_purge(pivot, R), tg.select_purge(pivot, R)
+        assert t is getattr(tg, j.__name__), (pivot, R)
+    assert tg.select_purge("row", 16) is tg.masked_purge_qr
+
+
+def _qr_purge_cases(R, dtype):
+    """(B, R, C) stacks with C = 20 columns: dependent rows (consistent and
+    inconsistent right-hand sides), a zero row, masked-out rows, and at
+    R = 24 more rows than columns (rank-deficient by shape)."""
+    rng = np.random.default_rng(R)
+    Bn, C = 5, 20
+    A = rng.standard_normal((Bn, R, C))
+    b = rng.standard_normal((Bn, R))
+    A[:, 6] = 2.0 * A[:, 0] - A[:, 3]
+    b[:3, 6] = 2.0 * b[:3, 0] - b[:3, 3]
+    b[3:, 6] += 0.5
+    A[:, 9], b[:, 9] = 0.0, 0.0
+    A[1, 11] = A[1, 2]
+    b[1, 11] = b[1, 2]
+    mask = rng.uniform(size=(Bn, R)) < 0.8
+    mask[:, [0, 3, 6, 9]] = True
+    return A.astype(dtype), b.astype(dtype), mask
+
+
+@pytest.mark.parametrize("R", [16, 24])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_masked_purge_qr_matches_jax(R, dtype):
+    """keep, inconsistent and bad_rows equal to the JAX package's under
+    vmap (tol at the solver's tier: 2^-26 float64, 2^-16 float32)."""
+    A, b, mask = _qr_purge_cases(R, dtype)
+    tol = 2.0**-26 if dtype == np.float64 else 2.0**-16
+    kj, ij, bj = jax.jit(jax.vmap(
+        lambda a, bb, m: jg.masked_purge_qr(a, bb, m, tol)))(
+        jnp.asarray(A), jnp.asarray(b), jnp.asarray(mask))
+    kt, it, bt = tg.masked_purge_qr(*_t(A, b, mask), tol)
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
+    # at R = 24 > C the rows past rank 20 are dropped with random b
+    assert it.numpy()[3:].all() and it.numpy()[:3].any() == (R > 20)
+    assert not kt.numpy()[:, 9].any()
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_kkt_solve_rhs_cg_matches_jax(system, dtype):
+    """dx, dl and the raw CG solution: float64 within 1e-9; float32 within
+    2e-4 (rtol 1e-7 CG in float32 on both sides, other summation orders)."""
+    V, AG, bg, q, z, free, keep = system
+    rng = np.random.default_rng(13)
+    r1, r2 = rng.standard_normal((B, N)), rng.standard_normal((B, R))
+    x0 = rng.standard_normal((B, N, 1 + R)) * 0.1
+    c = lambda a: a.astype(dtype)
+    rtol = 1e-12 if dtype == np.float64 else 1e-7
+    f = jax.jit(jax.vmap(lambda f_, k_, a_, b_, x_: jk.kkt_solve_rhs_cg(
+        jnp.asarray(c(V)), jnp.asarray(c(AG)), f_, k_, a_, b_, 200, rtol,
+        ok_rtol=1e-3, ridge=1e-10, x0=x_, return_sol=True)))
+    dxj, dlj, okj, solj = f(jnp.asarray(free), jnp.asarray(keep),
+                            jnp.asarray(c(r1)), jnp.asarray(c(r2)),
+                            jnp.asarray(c(x0)))
+    dxt, dlt, okt, solt = tk.kkt_solve_rhs_cg(
+        *_t(c(V), c(AG), free, keep, c(r1), c(r2)), 200, rtol, ok_rtol=1e-3,
+        ridge=1e-10, x0=torch.tensor(c(x0)), return_sol=True)
+    tol = 1e-9 if dtype == np.float64 else 2e-4
+    for a, b_ in ((dxt, dxj), (dlt, dlj), (solt, solj)):
+        assert a.dtype == torch.from_numpy(c(r1)).dtype
+        _close(a, b_, tol)
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    assert okt.all()
 
 
 def test_spd_solve_cpu_matches_numpy_and_flags_failure():

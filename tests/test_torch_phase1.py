@@ -33,7 +33,7 @@ FIELDS = ("V", "A", "G", "q", "b", "g", "d", "u")
 
 def _port(Q):
     return QP.from_numpy(*(np.asarray(getattr(Q, f)) for f in FIELDS),
-                         Q.N, Q.M, Q.J, Q.mc)
+                         Q.N, Q.M, Q.J, Q.mc, device="cpu")
 
 
 def _port1(Q):

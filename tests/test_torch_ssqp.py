@@ -33,7 +33,7 @@ N, B = 32, 16
 
 def _port(Q):
     return QP.from_numpy(*(np.asarray(getattr(Q, f)) for f in FIELDS),
-                         Q.N, Q.M, Q.J, Q.mc)
+                         Q.N, Q.M, Q.J, Q.mc, device="cpu")
 
 
 def _frontier(dtype):
@@ -211,8 +211,12 @@ def test_batch_auto_plain_route_and_unported_protocols():
         tb.solve_qp_batch_auto(big, TSettings(), shb)
     with pytest.raises(NotImplementedError, match="compaction"):
         tb.solve_qp_batch_auto(big, TSettings(), shb, waves=0)
-    with pytest.raises(NotImplementedError, match="tail"):
-        tb.solve_qp_batch_auto(Qbt, TSettings(), sh, tail=4)
+    rt = tb.solve_qp_batch_auto(Qbt, TSettings(), sh, tail=4)
+    rr = tb.solve_qp_batch_tail_refined(Qbt, TSettings(), sh, tail=4, iters=1)
+    for name in ("x", "S", "status", "lam", "gamma"):
+        np.testing.assert_array_equal(getattr(rt, name).numpy(),
+                                      getattr(rr, name).numpy())
+    np.testing.assert_array_equal(rt.S.numpy(), rp.S.numpy())
     with pytest.raises(ValueError):
         tb.solve_qp_batch(Qbt, TSettings(), shared=())
 

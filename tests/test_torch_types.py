@@ -7,6 +7,8 @@ sides), so leaves must be equal bit for bit."""
 import ast
 import dataclasses
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -43,7 +45,7 @@ def _qp_cases():
 def test_make_qp_matches_jax(name):
     kw = _qp_cases()[name]
     Qj = jt.make_qp(**kw)
-    Qt = tt.make_qp(**kw)
+    Qt = tt.make_qp(**kw, device="cpu")
     assert (Qt.N, Qt.M, Qt.J, Qt.mc) == (Qj.N, Qj.M, Qj.J, Qj.mc)
     for f in FIELDS:
         a, b = np.asarray(getattr(Qj, f)), getattr(Qt, f).numpy()
@@ -53,7 +55,7 @@ def test_make_qp_matches_jax(name):
 
 def test_mc_codes_of_the_cases():
     cases = _qp_cases()
-    codes = {n: tt.make_qp(**cases[n]).mc for n in cases}
+    codes = {n: tt.make_qp(**cases[n], device="cpu").mc for n in cases}
     assert codes["degenerate_bounds"] == tt.MC_DEGENERATE_BOUNDS == -30
     assert codes["no_constraints"] == tt.MC_NO_CONSTRAINTS == -20
     assert codes["not_psd"] == tt.MC_NOT_PSD == -70
@@ -81,7 +83,8 @@ def test_from_numpy_and_result_numpy_round_trip():
     Qj = jt.make_qp(**_qp_cases()["general"])
     qb = np.stack([np.asarray(Qj.q) * s for s in (1.0, 2.0, 3.0)])
     Qt = tt.QP.from_numpy(*(qb if f == "q" else np.asarray(getattr(Qj, f))
-                            for f in FIELDS), Qj.N, Qj.M, Qj.J, Qj.mc)
+                            for f in FIELDS), Qj.N, Qj.M, Qj.J, Qj.mc,
+                          device="cpu")
     assert Qt.batch_size == 3 and Qt.is_batched("q")
     assert not any(Qt.is_batched(f) for f in FIELDS if f != "q")
     sub = Qt.take(torch.tensor([2, 0]))
@@ -93,6 +96,38 @@ def test_from_numpy_and_result_numpy_round_trip():
     rn = r.numpy()
     assert isinstance(rn.x, np.ndarray) and rn.lam is None
     assert rn.S.dtype == np.int8 and rn.status.dtype == np.int32
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """make_qp, QP.from_numpy and Result.from_numpy build on CUDA unless
+    told otherwise; without a card they raise, never fall back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = _qp_cases()["general"]
+    Qj = jt.make_qp(**kw)
+    leaves = [np.asarray(getattr(Qj, f)) for f in FIELDS]
+    for build in (lambda: tt.make_qp(**kw),
+                  lambda: tt.QP.from_numpy(*leaves, Qj.N, Qj.M, Qj.J),
+                  lambda: tt.Result.from_numpy(np.zeros(5), np.zeros(7),
+                                               np.int32(1))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert tt.make_qp(**kw, device="cpu").device == torch.device("cpu")
+
+
+def test_result_from_numpy_carries_a_jax_result_across():
+    rj = jt.Result(np.arange(6.0).reshape(2, 3),
+                   np.array([[0, 1, 2, 3], [4, 0, 1, 2]], np.int8),
+                   np.array([3, -1], np.int32), np.ones((2, 1)),
+                   np.zeros((2, 3)))
+    names = ("x", "S", "status", "lam", "gamma")
+    rt = tt.Result.from_numpy(*(getattr(rj, n) for n in names), device="cpu")
+    assert rt.S.dtype == torch.int8 and rt.status.dtype == torch.int32
+    assert rt.x.dtype == torch.float64 and rt.x.device.type == "cpu"
+    back = rt.numpy()
+    for n in names:
+        np.testing.assert_array_equal(getattr(back, n), getattr(rj, n))
+    assert tt.Result.from_numpy(rj.x, rj.S, rj.status, device="cpu").lam \
+        is None
 
 
 def test_precision_guard_sets_and_restores():
@@ -133,6 +168,27 @@ def test_port_imports_no_jax_and_no_jax_package():
     bad = [(p.name, m) for p in files for m in _imports(p)
            if m.split(".")[0] in ("jax", "jaxlib", "ssqp_tpu")]
     assert not bad, bad
-    smoke = PORT.parent / "chip_smoke.py"
-    assert not [m for m in _imports(smoke)
-                if m.split(".")[0] in ("jax", "jaxlib", "ssqp_tpu")]
+    for script in ("chip_smoke.py", "profile_port.py"):
+        assert not [m for m in _imports(PORT.parent / script)
+                    if m.split(".")[0] in ("jax", "jaxlib", "ssqp_tpu")]
+
+
+def test_port_and_chip_smoke_import_with_jax_blocked():
+    """Import every port module, chip_smoke.py and profile_port.py in a
+    process where any import of jax or of the JAX package fails."""
+    root = PORT.parent
+    mods = sorted(".".join(p.relative_to(root).with_suffix("").parts)
+                  for p in PORT.rglob("*.py"))
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'ssqp_tpu'): sys.modules[m] = None\n"
+        f"for m in {mods!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
+        "import chip_smoke, profile_port\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ssqp_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(" + repr(mods) + "))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
