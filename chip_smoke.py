@@ -9,7 +9,11 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   (one nvcc per source, started together);
   3. kernel     — the fused CG kernel against its plain PyTorch version on
                   the card (f32 and f64; shared V at N=256, odd shapes,
-                  per-instance V) and both times at the main path's shapes;
+                  per-instance V; f32 at the main paths' four row counts),
+                  what a tile's shared exit costs at the ineq shape, and
+                  the kernel's, the plain version's and one float32
+                  matmul's times at the three timed shapes with the FFMA-
+                  and 3xTF32-route bounds;
   4. chol       — the batched Cholesky kernel against its plain version on
                   the card (f32, at the ineq path's shapes, an odd n, a
                   non-PD instance), and the times of the kernel, the plain
@@ -59,9 +63,10 @@ N_INEQ, M_INEQ, J_INEQ = 512, 10, 100
 B_INEQ = 256
 INEQ_SHARED = ("V", "A", "G", "b", "g", "d", "u")
 FEAS_TOL = 1e-4  # ineq primal feasibility, scaled by 1 + |b|, |g|, |d|, |u|
-# H100 SXM data sheet: float32 outside the
-# tensor cores, HBM3 bandwidth. The card's power limit is printed beside.
+# H100 SXM data sheet: float32 outside the tensor cores, TF32 on them, HBM3
+# bandwidth. The card's power limit is printed beside.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense, tensor cores
 PEAK_BYTES = 3.35e12
 
 
@@ -111,6 +116,14 @@ def cuda_time(torch, fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+# The fused CG kernel's timed shapes: (label, rows C, N, cold steps). The
+# frontier's rows at B=2048 and B=8192 (K=2), and the ineq path's 256
+# instances x 111 columns at the tail sweep's 96 steps.
+CG_TIMED = (("frontier C=4096", 2 * B_AUTO, N_MAIN, 64),
+            ("frontier C=16384", 2 * B_BIG, N_MAIN, 64),
+            ("ineq C=28416", B_INEQ * (1 + M_INEQ + J_INEQ), N_INEQ, 96))
+
+
 def phase_kernel(torch):
     from ssqp_tpu_torch.ops import cg
 
@@ -119,11 +132,16 @@ def phase_kernel(torch):
     cases = [("N=256 K=2 batch=2048 shared V", 256, 2, 2048, False, 200),
              ("N=13 K=3 batch=5 shared V", 13, 3, 5, False, 300),
              ("N=256 K=2 batch=64 per-instance V", 256, 2, 64, True, 200)]
-    # the ineq path's shape: N=512, shared V, 1+R = 111 columns for each of
-    # B_INEQ instances, the tail sweep's 96 steps
-    ineq = [(f"N={N_INEQ} K={1 + M_INEQ + J_INEQ} batch={B_INEQ} shared V",
-             N_INEQ, 1 + M_INEQ + J_INEQ, B_INEQ, False, 96)]
-    for dtype, tol, extra in ((torch.float32, F32_TOL, ineq),
+    # the main paths' other row counts in float32: the frontier at B=8192
+    # (C=16384); the ineq path's 1+R = 111 columns at N=512 for its tail
+    # passes of 64 instances (C=7104) and its whole batch (C=28416), at the
+    # tail sweep's 96 steps
+    K_INEQ = 1 + M_INEQ + J_INEQ
+    main_rows = [("N=256 K=2 batch=8192 shared V", N_MAIN, 2, B_BIG, False,
+                  200)] + [
+        (f"N={N_INEQ} K={K_INEQ} batch={b} shared V", N_INEQ, K_INEQ, b,
+         False, 96) for b in (B_INEQ // 4, B_INEQ)]
+    for dtype, tol, extra in ((torch.float32, F32_TOL, main_rows),
                               (torch.float64, F64_TOL, [])):
         for name, N, K, batch, per, iters in cases + extra:
             V, FM, B, DINV, TOL2, X0 = cg_problem(torch, rng, N, K, batch,
@@ -149,23 +167,108 @@ def phase_kernel(torch):
                 raise RuntimeError(f"kernel disagrees with plain version: {name}")
             worst = max(worst, err)
 
+    exits = tile_exit_cost(torch, cg, rng)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmul is on: gemm_ms would not be float32")
     times = {}
-    for batch in (B_AUTO, B_BIG):
-        V, FM, B, DINV, TOL2, X0 = cg_problem(torch, rng, N_MAIN, 2, batch,
+    for label, C, N, steps in CG_TIMED:
+        V, FM, B, DINV, TOL2, X0 = cg_problem(torch, rng, N, 1, C,
                                               torch.float32)
-        TOL2 = torch.zeros_like(TOL2)  # never converges: exactly 64 steps
+        TOL2 = torch.zeros_like(TOL2)  # never converges: exactly `steps`
         Br, X0r, fmr, dinvr, tol2r = cg._rows(B, FM, DINV, TOL2, X0)
-        kern = lambda: cg.cg_padded_rows(V, fmr, dinvr, Br, tol2r, 64, X0r)
-        plain = lambda: cg.cg_rows_reference(V, fmr, dinvr, Br, tol2r, 64,
+        kern = lambda: cg.cg_padded_rows(V, fmr, dinvr, Br, tol2r, steps,
+                                         X0r)
+        plain = lambda: cg.cg_rows_reference(V, fmr, dinvr, Br, tol2r, steps,
                                              X0r)
-        t_k1, t_p1 = cuda_time(torch, kern), cuda_time(torch, plain)
-        t_k2, t_p2 = cuda_time(torch, kern), cuda_time(torch, plain)
-        tk, tp = min(t_k1, t_k2), min(t_p1, t_p2)
-        times[batch] = (tk, tp)
-        log("kernel", f"f32 N={N_MAIN} C={2 * batch} rows, 64 cold steps: "
-            f"kernel {tk:.3f} ms, plain {tp:.3f} ms "
-            f"(runs {t_k1:.3f}/{t_k2:.3f} vs {t_p1:.3f}/{t_p2:.3f})")
-    return worst, times
+        # one step's product as one float32 library call (TF32 off), the
+        # yardstick of the matvec's cost; the port never calls it
+        gemm = lambda: torch.matmul(Br, V.T)
+        tk1, tp1, tg1 = (cuda_time(torch, kern), cuda_time(torch, plain),
+                         cuda_time(torch, gemm))
+        tg2, tp2, tk2 = (cuda_time(torch, gemm), cuda_time(torch, plain),
+                         cuda_time(torch, kern))
+        b_ffma, by_ffma = cg_bound(C, N, steps)
+        b_tc, by_tc = cg_bound_3xtf32(C, N, steps)
+        t = {"ms": min(tk1, tk2), "plain_ms": min(tp1, tp2),
+             "gemm_ms": steps * min(tg1, tg2),
+             "bound_ffma_ms": b_ffma, "bound_ffma_by": by_ffma,
+             "bound_3xtf32_ms": b_tc, "bound_3xtf32_by": by_tc}
+        times[label] = t
+        log("kernel", f"f32 {label} N={N} {steps} cold steps: kernel "
+            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, gemm x steps "
+            f"{t['gemm_ms']:.3f} ms, bound FFMA {b_ffma:.3f} ms "
+            f"({100 * b_ffma / t['ms']:.1f}%), bound 3xTF32 {b_tc:.3f} ms "
+            f"({100 * b_tc / t['ms']:.1f}%) (runs {tk1:.3f}/{tk2:.3f}, "
+            f"{tp1:.3f}/{tp2:.3f}, {tg1:.4f}/{tg2:.4f})")
+    return worst, times, exits
+
+
+def tile_exit_cost(torch, cg, rng):
+    """What a tile's shared exit costs at the ineq path's shape (N=512, 111
+    columns x 256 instances): a tile runs until its last row converges
+    (checked every 8 steps), so its frozen rows ride along. From the
+    kernel's own converged flags after 8, 16, ..., 96 steps: the row-steps
+    the tiles run over the row-steps each row needs (at the 8-step check),
+    for this launch's tile and for 16-row tiles, with the smoke's tolerance
+    (rtol 1e-5) and with tolerances spread over 1e-5 .. 1e-1."""
+    N, K, batch = N_INEQ, 1 + M_INEQ + J_INEQ, B_INEQ
+    V, FM, B, DINV, TOL2, X0 = cg_problem(torch, rng, N, K, batch,
+                                          torch.float32)
+    Br, X0r, fmr, dinvr, tol2r = cg._rows(B, FM, DINV, TOL2, X0)
+    C = Br.shape[0]
+    spread = torch.tensor(10.0 ** rng.uniform(-5, -1, (C, 1)),
+                          dtype=torch.float32, device=Br.device)
+    out = {}
+    for label, tol in (("rtol 1e-5", tol2r),
+                       ("rtol 1e-5..1e-1", spread * spread
+                        * (Br * Br).sum(1, keepdim=True))):
+        chunks = list(range(8, 97, 8))
+        conv = torch.stack([
+            (cg.cg_padded_rows(V, fmr, dinvr, Br, tol, it, X0r)[1] <= tol)
+            .squeeze(1) for it in chunks], 1)  # (C, 12)
+        # steps a row needs at the 8-step check: the first converged chunk
+        first = torch.where(conv.any(1), conv.float().argmax(1),
+                            torch.full((C,), len(chunks) - 1,
+                                       device=conv.device))
+        row_steps = (first + 1) * 8
+        res = {}
+        for tr in (cg.tile_rows(C, N), 16):
+            pad = (-C) % tr
+            rs = torch.cat([row_steps, row_steps.new_zeros(pad)])
+            tile_steps = rs.view(-1, tr).max(1).values
+            res[tr] = float(tile_steps.sum() * tr) / float(row_steps.sum())
+        out[label] = {"row_steps_mean": float(row_steps.float().mean()),
+                      "row_steps_max": int(row_steps.max()),
+                      "tile_over_row": res}
+        log("kernel", f"tile exit, N={N} C={C} {label}: rows need "
+            f"{out[label]['row_steps_mean']:.1f} steps on average (max "
+            f"{out[label]['row_steps_max']}); tiles run "
+            + ", ".join(f"{v:.4f}x at {k} rows" for k, v in res.items())
+            + " of that")
+    return out
+
+
+def ptxas_summary(text):
+    """[(kernel, registers, spill stores, spill loads, shared bytes)] from
+    ptxas's -v report."""
+    import re
+
+    rows, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill[0], spill[1],
+                         int(m.group(2) or 0)))
+            name, spill = None, (0, 0)
+    return rows
 
 
 def bound(flops, nbytes):
@@ -183,6 +286,17 @@ def cg_bound(C, N, iters):
     rr written once, float32."""
     return bound(iters * C * (2 * N * N + 14 * N),
                  4 * (N * N + 5 * C * N + 2 * C))
+
+
+def cg_bound_3xtf32(C, N, iters):
+    """The same solve with the V matvec as three TF32 tensor-core products
+    (3 x 2 N^2 per row and step at 495 TFLOP/s) and the vector work at the
+    float32 rate; the bytes as in :func:`cg_bound`."""
+    t_ops = (3 * 2 * N * N * C * iters / PEAK_TF32_FLOPS
+             + 14 * N * C * iters / PEAK_F32_FLOPS)
+    t_bytes = 4 * (N * N + 5 * C * N + 2 * C) / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def chol_bound(B, n, K):
@@ -535,8 +649,12 @@ def main():
     _build.load()
     log("build", f"CUDA kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    ptxas = ptxas_summary(_build.ptxas_report())
+    for kname, regs, st, ld, smem in ptxas:
+        log("build", f"ptxas {kname}: {regs} registers, spill stores {st} "
+            f"B, spill loads {ld} B, static shared {smem} B")
 
-    worst, ktimes = phase_kernel(torch)
+    worst, ktimes, exits = phase_kernel(torch)
     chol_worst, ctimes = phase_chol(torch)
     res_auto, main_launches, rates = phase_main(torch, card)
     phase_audit(torch, res_auto)
@@ -547,8 +665,7 @@ def main():
                          "ineq": ineq_launches["cg_rows"]},
              "chol_solve": {"frontier": main_launches["chol_solve"],
                             "ineq": ineq_launches["chol_solve"]}}
-    tk, tp = ktimes[B_AUTO]
-    cg_b, cg_by = cg_bound(2 * B_AUTO, N_MAIN, 64)
+    head = ktimes[CG_TIMED[0][0]]
     ck, cp, cl = ctimes[CHOL_TIMED[0]]
     ch_b, ch_by = chol_bound(*CHOL_TIMED[0])
     print(json.dumps({"kernels": [{
@@ -559,12 +676,23 @@ def main():
         "launches": sum(paths["cg_rows"].values()),
         "launches_by_path": paths["cg_rows"],
         "max_abs_err": worst,
-        "ms": tk,
-        "plain_ms": tp,
-        "bound_ms": cg_b,
-        "bound_by": cg_by,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        # the least time on the card: the matvec as three TF32 products,
+        # the kernel's route; "shapes" also give the FFMA-route bound
+        "bound_ms": head["bound_3xtf32_ms"],
+        "bound_by": head["bound_3xtf32_by"],
+        "bound_route": "3xTF32 tensor cores",
         "library_ms": None,
-        "shape": f"C={2 * B_AUTO} rows, N={N_MAIN}, 64 steps, f32",
+        "shape": f"{CG_TIMED[0][0]}, N={CG_TIMED[0][2]}, "
+                 f"{CG_TIMED[0][3]} steps, f32",
+        "shapes": [dict(shape=f"{label}, N={N}, {steps} steps, f32",
+                        **ktimes[label])
+                   for label, C, N, steps in CG_TIMED],
+        "ptxas": [{"kernel": k, "registers": r, "spill_stores": st,
+                   "spill_loads": ld} for k, r, st, ld, _ in ptxas
+                  if "cg_" in k],
+        "tile_exit": exits,
     }, {
         "name": "chol_solve",
         "route": "cuda",

@@ -21,7 +21,7 @@ import time
 from collections import defaultdict
 
 GROUPS = (  # first match wins; matched against the kernel's name
-    ("cg_kernel", re.compile(r"cg_rows_kernel")),
+    ("cg_kernel", re.compile(r"cg_rows_(tc_)?kernel")),
     ("chol_kernel", re.compile(r"chol_solve_kernel")),
     ("library_qr", re.compile(r"geqr|larf|orgqr|householder", re.I)),
     ("library_cholesky", re.compile(r"potr|trsm|trsv|chol", re.I)),

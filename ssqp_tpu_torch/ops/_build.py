@@ -4,7 +4,10 @@ The sources under ``ops/csrc/`` are compiled with ``nvcc`` into one shared
 library with a plain C interface, loaded with ``ctypes``. The build happens
 at first use, into ``build/`` at the repository root; the library's file
 name carries a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is loaded as is. Nothing here runs at import time.
+and an unchanged one is loaded as is. ptxas's report of each kernel's
+registers, shared memory and spills (``-Xptxas -v``) is kept beside the
+library and returned by :func:`ptxas_report`. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -24,10 +27,11 @@ _SOURCES = ("cg.cu", "chol.cu")
 # No --use_fast_math: it approximates divisions and flushes denormals,
 # which breaks the 1e-30 and finfo.tiny floors the solver relies on.
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
+_lib_path = None
 
 
 def _nvcc() -> str:
@@ -42,9 +46,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name in ("ssqp_cg_rows_f32", "ssqp_cg_rows_f64"):
         fn = getattr(lib, name)
-        # Vt, vstride, inst, fm, dinv, B, tol2, X, rr, C, N, iters, stream
-        fn.argtypes = [p, i64, p, p, p, p, p, p, p, i32, i32, i32, p]
+        # Vt, vstride, inst, fm, dinv, B, tol2, X, R, rr, C, N, iters, stream
+        fn.argtypes = [p, i64, p, p, p, p, p, p, p, p, i32, i32, i32, p]
         fn.restype = i32
+    lib.ssqp_cg_tile_rows_f32.argtypes = [i32, i32]  # C, N
+    lib.ssqp_cg_tile_rows_f32.restype = i32
     for name in ("ssqp_chol_fits_smem_f32", "ssqp_chol_fits_smem_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [i32, i32]  # n, K
@@ -56,7 +62,8 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def _run(cmds):
-    """Run the commands concurrently; raise with a failed one's output."""
+    """Run the commands concurrently; raise with a failed one's output,
+    else return their standard error streams joined."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
@@ -65,12 +72,13 @@ def _run(cmds):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
                                f"{' '.join(c)}\n{out}\n{err}")
+    return "".join(err for _, err in outs)
 
 
 def load() -> ctypes.CDLL:
     """Return the kernel library, building it first if needed: one nvcc
     process per source, started together, then one link."""
-    global _lib
+    global _lib, _lib_path
     with _lock:
         if _lib is not None:
             return _lib
@@ -84,12 +92,27 @@ def load() -> ctypes.CDLL:
             nvcc = _nvcc()
             with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
                 objs = [str(Path(tmpdir) / (s.stem + ".o")) for s in srcs]
-                _run([[nvcc, *_FLAGS, "-c", "-o", o, str(s)]
-                      for s, o in zip(srcs, objs)])
+                report = _run([[nvcc, *_FLAGS, "-c", "-o", o, str(s)]
+                               for s, o in zip(srcs, objs)])
+                _report_path(out).write_text(report)
                 tmp = str(Path(tmpdir) / out.name)
                 _run([[nvcc, *_FLAGS, "-shared", "-o", tmp, *objs]])
                 os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         _declare(lib)
         _lib = lib
+        _lib_path = out
         return lib
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_report() -> str:
+    """ptxas's ``-v`` output from the build of the loaded library ("" when
+    the library was built before reports were kept)."""
+    if _lib_path is None:
+        raise RuntimeError("ptxas_report: the kernel library is not loaded")
+    path = _report_path(_lib_path)
+    return path.read_text() if path.exists() else ""

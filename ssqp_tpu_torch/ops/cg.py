@@ -14,6 +14,14 @@ division floors; any-alive exit checked every 8 steps).
 Dispatch is by device and nothing else: a CPU tensor runs
 :func:`cg_rows_reference` (plain PyTorch); a CUDA tensor launches the kernel
 in ``csrc/cg.cu`` or raises. ``LAUNCHES`` counts kernel launches.
+
+The kernel has two bodies, picked by a fixed rule on the arguments alone:
+float32 with one shared V (``V.dim() == 2``) and N <= 1024 runs the
+tensor-core body (3xTF32 ``mma.sync``, tiles of 16/32/64 rows chosen from C
+and N, V streamed through shared memory); float64, a per-instance V and
+float32 with N > 1024 run the first port's body (FFMA/DFMA, V read from L2).
+Neither falls back to the other, to the plain version or to a library call:
+a launch that fails raises.
 """
 
 from __future__ import annotations
@@ -82,6 +90,17 @@ def cg_rows_reference(V, fmr, dinvr, Br, tol2r, iters, X0r,
     return X, rr
 
 
+def tile_rows(C: int, N: int) -> int:
+    """Rows per block of the tensor-core body for a float32 shared-V solve of
+    C rows of width N on the current card; 0 where the first body runs."""
+    from ssqp_tpu_torch.ops import _build
+
+    tr = _build.load().ssqp_cg_tile_rows_f32(int(C), int(N))
+    if tr < 0:
+        raise RuntimeError("cg tile query failed: no usable CUDA device")
+    return tr
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
@@ -126,6 +145,9 @@ def cg_padded_rows(V, fmr, dinvr, Br, tol2r, iters, X0r,
     rr = torch.zeros((C, 1), dtype=dtype, device=dev)
     if C == 0 or N == 0:
         return X, rr
+    # the tensor-core body keeps the residual in device memory
+    R = (torch.empty_like(X) if dtype == torch.float32 and V.dim() == 2
+         else None)
     from ssqp_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -137,7 +159,7 @@ def cg_padded_rows(V, fmr, dinvr, Br, tol2r, iters, X0r,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_ptr(Vt), ctypes.c_longlong(vstride), _ptr(inst_c),
-                 *(_ptr(t) for t in args), _ptr(X), _ptr(rr),
+                 *(_ptr(t) for t in args), _ptr(X), _ptr(R), _ptr(rr),
                  ctypes.c_int(C), ctypes.c_int(N), ctypes.c_int(int(iters)),
                  ctypes.c_void_p(stream))
     if err != 0:

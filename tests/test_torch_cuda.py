@@ -11,6 +11,10 @@ Tolerances:
   * kernel vs plain version on X: float32 5e-4 (tests/test_pallas_cg.py's
     bound), float64 1e-9; with the iteration cap hit (no row converges)
     float32 1e-4 and float64 1e-10, as tests/test_torch_cg.py;
+  * the float32 tensor-core body: a row's X alone and inside a full batch
+    within 1e-6 (the same row, another tile's company: only the tile size
+    may change its summation order); its float64 true residual no more than
+    4x the plain float32 version's (one-pass TF32 would be ~1e3x);
   * Cholesky kernel vs plain version (both on the card, SPD batches of
     condition number 100): float32 1e-4 and float64 1e-10, relative to
     max|X| (the same recurrence in another summation order); on non-PD
@@ -330,3 +334,126 @@ def test_ineq_class_with_tail_on_card_matches_cpu(dev, dtype):
     else:
         fc, fg = _obj(Q, rc.x), _obj(Q, rg.x)
         assert (np.abs(fg - fc) <= 1e-6 * np.maximum(1.0, np.abs(fc))).all()
+
+
+# ---- the float32 shared-V tensor-core body --------------------------------
+
+
+def _rows_problem(seed, N, C, rtol=1e-5, dev=None):
+    """C independent rows of width N on one SPD V (70% free), as the
+    kernel's row layout, float32 on ``dev``."""
+    V, FM, B, DINV, TOL2 = _cg_problem(seed, N, 1, C, torch.float64)
+    TOL2 = rtol * rtol * torch.clamp((B * B).sum(1), min=1e-30)
+    Br, X0r, fmr, dinvr, tol2r = cg._rows(B, FM, DINV, TOL2,
+                                          torch.zeros_like(B))
+    return [t.to(device=dev, dtype=torch.float32)
+            for t in (V, fmr, dinvr, Br, tol2r, X0r)]
+
+
+def _kernel_and_plain(V, fmr, dinvr, Br, tol2r, X0r, iters):
+    before = cg.LAUNCHES
+    Xk, rrk = cg.cg_padded_rows(V, fmr, dinvr, Br, tol2r, iters, X0r)
+    assert cg.LAUNCHES == before + 1
+    Xp, rrp = cg.cg_rows_reference(V, fmr, dinvr, Br, tol2r, iters, X0r)
+    torch.cuda.synchronize()
+    return Xk, rrk, Xp, rrp
+
+
+@pytest.mark.parametrize("N", [1, 13, 37, 300, 513])
+@pytest.mark.parametrize("C", [35, 4261])
+def test_tc_kernel_tile_edges(dev, N, C):
+    """C a multiple of no row tile; N a multiple of no k-slice and no MMA
+    tile. At C = 4261 the tile is the largest N allows (64 rows up to N =
+    256, 32 to 512, 16 past it); at C = 35 it is 16."""
+    tr = cg.tile_rows(C, N)
+    assert tr == (16 if C == 35 or N > 512 else 32 if N > 256 else 64)
+    args = _rows_problem(N + C, N, C, dev=dev)
+    Xk, rrk, Xp, rrp = _kernel_and_plain(*args, 300)
+    tol2r = args[4]
+    assert bool(torch.isfinite(Xk).all())
+    assert float((Xk - Xp).abs().max()) <= TOL[torch.float32]
+    conv = rrp <= tol2r
+    assert bool((rrk[conv] <= 1.01 * tol2r[conv]).all())
+
+
+def test_tc_kernel_at_the_ineq_shape(dev):
+    """The ineq path's widths cut to 4 instances: N = 512, K = 1 + M + J =
+    111 columns each (C = 444), the tail sweep's 96 steps."""
+    V, FM, B, DINV, TOL2 = (t.to(dev, torch.float32) for t in
+                            _cg_problem(512, 512, 111, 4, torch.float32))
+    X0 = torch.zeros_like(B)
+    Xk, rrk = cg.cg_padded_batch(V, FM, B, DINV, TOL2, 96, X0)
+    Br, X0r, fmr, dinvr, tol2r = cg._rows(B, FM, DINV, TOL2, X0)
+    Xp, rrp = cg.cg_rows_reference(V, fmr, dinvr, Br, tol2r, 96, X0r)
+    Xp = Xp.reshape(4, 111, 512).transpose(1, 2)
+    assert float((Xk - Xp).abs().max()) <= TOL[torch.float32]
+    conv = rrp.reshape(4, 111) <= TOL2
+    assert bool(conv.all())
+    assert bool((rrk[conv] <= 1.01 * TOL2[conv]).all())
+
+
+@pytest.mark.parametrize("N,C", [(256, 4261), (512, 2250)])
+def test_tc_kernel_rows_converge_at_different_steps(dev, N, C):
+    """Tolerances from 1e-1 to 1e-5 in one tile, one row in eight converged
+    at its warm start (rr <= tol2 before the first step): each row freezes
+    on its own step, and the converged ones keep their warm start."""
+    V, fmr, dinvr, Br, tol2r, X0r = _rows_problem(7, N, C, dev=dev)
+    rng = np.random.default_rng(N)
+    rtol = torch.tensor(10.0 ** rng.uniform(-5, -1, (C, 1)),
+                        dtype=torch.float32, device=dev)
+    tol2r = (rtol * rtol) * (Br * Br).sum(1, keepdim=True)
+    warm = torch.arange(C, device=dev) % 8 == 3
+    tol2r[warm] = 1e4 * (Br[warm] * Br[warm]).sum(1, keepdim=True)
+    X0r = torch.tensor(rng.standard_normal((C, N)), dtype=torch.float32,
+                       device=dev) * warm[:, None]
+    Xk, rrk, Xp, rrp = _kernel_and_plain(V, fmr, dinvr, Br, tol2r, X0r, 200)
+    assert float((Xk - Xp).abs().max()) <= TOL[torch.float32]
+    assert torch.equal(Xk[warm], X0r[warm])
+    conv = rrp <= tol2r
+    assert bool(conv.all())
+    assert bool((rrk <= 1.01 * tol2r).all())
+
+
+@pytest.mark.parametrize("iters", [3, 11])
+@pytest.mark.parametrize("N,C", [(256, 4261), (512, 2250)])
+def test_tc_kernel_iteration_cap(dev, iters, N, C):
+    """tol2 = 0 at the main paths' widths: exactly ``iters`` steps (11: the
+    chunk clamp at a non-multiple of 8) in 64- and 32-row tiles."""
+    V, fmr, dinvr, Br, tol2r, X0r = _rows_problem(3, N, C, dev=dev)
+    Xk, rrk, Xp, rrp = _kernel_and_plain(V, fmr, dinvr, Br,
+                                         torch.zeros_like(tol2r), X0r, iters)
+    assert float((Xk - Xp).abs().max()) <= 1e-4
+    torch.testing.assert_close(rrk, rrp, rtol=2e-2, atol=0)
+
+
+@pytest.mark.parametrize("N,C", [(256, 16384), (512, 28416)])
+def test_tc_kernel_row_result_ignores_its_tile_company(dev, N, C):
+    """The first rows solved alone (16-row tile, the other rows empty) and
+    inside the full batch (64- or 32-row tiles of other systems) agree to
+    1e-6: a row's freeze and sums are its own."""
+    V, fmr, dinvr, Br, tol2r, X0r = _rows_problem(5, N, C, dev=dev)
+    assert cg.tile_rows(C, N) in (32, 64) and cg.tile_rows(5, N) == 16
+    X_all, rr_all = cg.cg_padded_rows(V, fmr, dinvr, Br, tol2r, 96, X0r)
+    X_one, rr_one = cg.cg_padded_rows(V, fmr[:5], dinvr[:5], Br[:5],
+                                      tol2r[:5], 96, X0r[:5])
+    assert float((X_all[:5] - X_one).abs().max()) <= 1e-6
+
+
+def test_tc_kernel_keeps_float32_accuracy(dev):
+    """3xTF32, not one-pass TF32: at rtol 1e-6 (near float32 CG's floor)
+    the float64 true residual ||b - vp(x)|| of the kernel's X is at most 4x
+    that of the plain float32 version's X; a one-pass TF32 product (10-bit
+    mantissa) would leave it near 1e-3 ||b||."""
+    N, C = 512, 256
+    V, fmr, dinvr, Br, tol2r, X0r = _rows_problem(11, N, C, rtol=1e-6,
+                                                  dev=dev)
+    Xk, _, Xp, _ = _kernel_and_plain(V, fmr, dinvr, Br, tol2r, X0r, 300)
+    Vd, fd, bd = V.double(), fmr.double(), Br.double()
+
+    def resid(X):
+        X = X.double()
+        return (bd - (fd * ((fd * X) @ Vd.T) + (1.0 - fd) * X)).norm(dim=1)
+
+    rk, rp = resid(Xk), resid(Xp)
+    assert float(rk.max()) <= 4.0 * float(rp.max())
+    assert float((rk / bd.norm(dim=1)).max()) < 1e-4
