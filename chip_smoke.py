@@ -15,9 +15,11 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   matmul's times at the three timed shapes with the FFMA-
                   and 3xTF32-route bounds;
   4. chol       — the batched Cholesky kernel against its plain version on
-                  the card (f32, at the ineq path's shapes, an odd n, a
-                  non-PD instance), and the times of the kernel, the plain
-                  version and the library pair (cholesky_ex + cholesky_solve);
+                  the card (f32, at the ineq path's shapes, the blocked
+                  body's panel edges, the direct N x N solve, non-PD
+                  instances), and the times of the kernel, of the plain
+                  version and of the library pair (cholesky_ex +
+                  cholesky_solve) at the ineq path's five shapes;
   5. main       — the frontier-QP path through the port's entry points at
                   N=256 (solve_qp_batch_auto at B=2048, solve_qp_batch at
                   B=8192, float32), with the kernels' launch counts and QP/s;
@@ -34,8 +36,10 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   objective gap and ||x - z||_inf quantiles, max gap < 1e-6.
 
 Then one JSON line with the kernel table (each kernel's launches on the two
-paths, its worst error against the plain version, its time, the plain
-version's, the library call's and the bound), the nvidia-smi line, and, last,
+paths, for the Cholesky kernel also by (B, n, K) with the body each shape
+takes, its worst error against the plain version, its time, the plain
+version's, the library call's, the bound and ptxas's registers and spills),
+the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. The frontier problem is the headline
 benchmark's (bench.py): seed 7, V = HH'/N + 0.5 I, mu ~ U(0, 0.2),
 0 <= x <= 4/N. The ineq problem is bench_suite.py::config4's generator, seed
@@ -68,6 +72,7 @@ FEAS_TOL = 1e-4  # ineq primal feasibility, scaled by 1 + |b|, |g|, |d|, |u|
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12  # dense, tensor cores
 PEAK_BYTES = 3.35e12
+SPIN_CYCLES = 10_000_000  # cuda_time's lead: ~5 ms at the H100's clocks
 
 
 def log(phase, msg):
@@ -104,10 +109,15 @@ def cg_problem(torch, rng, N, K, batch, dtype, per_instance=False):
 
 
 def cuda_time(torch, fn, reps=5):
+    """Device time of one call of ``fn`` in ms, the mean over ``reps`` calls
+    after one warm-up. A spin kernel (~5 ms) runs first, so that the calls
+    queue up behind it and run back to back: a call shorter than its host
+    overhead is timed on the device, not at the host's launch rate."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -301,9 +311,11 @@ def cg_bound_3xtf32(C, N, iters):
 
 def chol_bound(B, n, K):
     """One factor-and-solve of B instances: n^3/3 FLOPs for the factor and
-    2 n^2 K for the two substitutions; A and RHS read once, X written once,
-    float32."""
-    return bound(B * (n**3 / 3 + 2 * n * n * K), 4 * B * (n * n + 2 * n * K))
+    2 n^2 K for the two substitutions; the upper triangle of A (n (n + 1) / 2
+    words, all that the function reads of it) and RHS read once, X written
+    once, float32."""
+    return bound(B * (n**3 / 3 + 2 * n * n * K),
+                 4 * B * (n * (n + 1) // 2 + 2 * n * K))
 
 
 def spd_batch(rng, B, n, kappa=100.0):
@@ -313,7 +325,17 @@ def spd_batch(rng, B, n, kappa=100.0):
     return (A + A.transpose(0, 2, 1)) / 2
 
 
-CHOL_TIMED = ((256, 110, 1), (256, 110, 110))
+# The Cholesky kernel's timed shapes (B, n, K): the ineq path's batch and
+# tail-pass widths at its n = R = 110 with the Schur and dual-recovery
+# (K = 1), QR-purge (K = R) and dropped-row (K = J) right-hand sides.
+CHOL_TIMED = ((256, 110, 1), (256, 110, 110), (256, 110, 100), (64, 110, 1),
+              (64, 110, 110))
+# Checked only: the direct N x N solve (the rank-1 body in device memory)
+# and the panel edges of the blocked body (n = 16 k - 1, 16 k, 16 k + 1, the
+# largest n that fits at K = 1).
+CHOL_CHECKED = ((8, 512, 111), (64, 37, 3), (8, 16, 1), (8, 17, 3),
+                (8, 31, 100), (8, 32, 1), (8, 33, 110), (8, 47, 4),
+                (8, 111, 111), (8, 224, 1))
 
 
 def phase_chol(torch):
@@ -323,8 +345,7 @@ def phase_chol(torch):
     t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
     data = {}
     worst = 0.0
-    for B, n, K in ((256, 110, 1), (256, 110, 110), (256, 110, 100),
-                    (8, 512, 111), (64, 37, 3)):
+    for B, n, K in CHOL_TIMED + CHOL_CHECKED:
         A, R = t(spd_batch(rng, B, n)), t(rng.standard_normal((B, n, K)))
         data[B, n, K] = (A, R)
         Xk = chol.chol_solve_batch(A, R)
@@ -332,26 +353,28 @@ def phase_chol(torch):
         torch.cuda.synchronize()
         err = float((Xk - Xp).abs().max())
         tol = CHOL_TOL * float(Xp.abs().max())
-        log("chol", f"f32 (B, n, K) = ({B}, {n}, {K}): max|dX| {err:.3e} "
-            f"(tol {tol:.3e})")
+        log("chol", f"f32 (B, n, K) = ({B}, {n}, {K}), {chol.body(n, K)} "
+            f"body: max|dX| {err:.3e} (tol {tol:.3e})")
         if not err <= tol:
             raise RuntimeError(f"chol kernel disagrees with plain version at "
                                f"{(B, n, K)}")
         worst = max(worst, err)
-    # a negative pivot in instance 0: no fault, no solution there, the
-    # other instances as the plain version
-    A = spd_batch(rng, 4, 110)
-    A[0, 40, 40] = -1.0
-    R = rng.standard_normal((4, 110, 1))
+    # a negative pivot inside a panel (instance 0), one on a panel boundary
+    # (1), a NaN on the diagonal (2): no fault, no solution there, the other
+    # instances as the plain version
+    A = spd_batch(rng, 6, 110)
+    A[0, 40, 40] = A[1, 48, 48] = -1.0
+    A[2, 70, 70] = np.nan
+    R = rng.standard_normal((6, 110, 1))
     Xk = chol.chol_solve_batch(t(A), t(R))
     Xp = chol.chol_solve_reference(t(A), t(R))
     Xn = Xk.double().cpu().numpy()
-    bad = (not np.isfinite(Xn[0]).all()
-           or np.abs(A[0] @ Xn[0] - R[0]).max() > 1e-2)
-    err = float((Xk[1:] - Xp[1:]).abs().max())
-    log("chol", f"non-PD instance: kernel returns no solution {bad}; the "
+    bad = [not np.isfinite(Xn[b]).all()
+           or np.abs(A[b] @ Xn[b] - R[b]).max() > 1e-2 for b in range(3)]
+    err = float((Xk[3:] - Xp[3:]).abs().max())
+    log("chol", f"non-PD instances: kernel returns no solution {bad}; the "
         f"other three max|dX| {err:.3e}")
-    if not (bad and err <= CHOL_TOL * float(Xp[1:].abs().max())):
+    if not (all(bad) and err <= CHOL_TOL * float(Xp[3:].abs().max())):
         raise RuntimeError("chol kernel on non-PD input")
 
     times = {}
@@ -360,16 +383,21 @@ def phase_chol(torch):
         kern = lambda: chol.chol_solve_batch(A, R)
         plain = lambda: chol.chol_solve_reference(A, R)
         lib = lambda: torch.cholesky_solve(R, torch.linalg.cholesky_ex(A)[0])
-        tk1, tp1, tl1 = (cuda_time(torch, kern), cuda_time(torch, plain),
-                         cuda_time(torch, lib))
-        tl2, tp2, tk2 = (cuda_time(torch, lib), cuda_time(torch, plain),
-                         cuda_time(torch, kern))
-        times[shape] = (min(tk1, tk2), min(tp1, tp2), min(tl1, tl2))
-        log("chol", f"f32 (B, n, K) = {shape}: kernel {times[shape][0]:.4f} "
-            f"ms, plain {times[shape][1]:.3f} ms, library "
-            f"{times[shape][2]:.4f} ms, bound {chol_bound(*shape)[0]:.5f} ms "
-            f"(runs {tk1:.4f}/{tk2:.4f}, {tp1:.3f}/{tp2:.3f}, "
-            f"{tl1:.4f}/{tl2:.4f})")
+        fns = {"ms": (kern, 20), "plain_ms": (plain, 5),
+               "library_ms": (lib, 20)}
+        runs = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):  # each in turn, then back
+            for k in order:
+                runs[k].append(cuda_time(torch, *fns[k]))
+        times[shape] = {k: min(v) for k, v in runs.items()}
+        tm = times[shape]
+        b, by = chol_bound(*shape)
+        log("chol", f"f32 (B, n, K) = {shape}: kernel ({chol.body(*shape[1:])}"
+            f") {tm['ms']:.4f} ms; plain {tm['plain_ms']:.3f} ms; library "
+            f"{tm['library_ms']:.4f} ms; bound {b:.5f} ms ({by}, kernel at "
+            f"{100 * b / tm['ms']:.1f}%) (runs " + ", ".join(
+                f"{k} " + "/".join(f"{x:.4f}" for x in v)
+                for k, v in runs.items()) + ")")
     return worst, times
 
 
@@ -419,9 +447,11 @@ def phase_main(torch, card):
     Qb, shared = frontier_batch(Q, grid(torch, 0, B_AUTO))
     torch.cuda.synchronize()
     cg.LAUNCHES = chol.LAUNCHES = 0
+    chol.LAUNCHES_BY_SHAPE.clear()
     res_auto = solve_qp_batch_auto(Qb, settings, shared)
     torch.cuda.synchronize()
-    launches = {"cg_rows": cg.LAUNCHES, "chol_solve": chol.LAUNCHES}
+    launches = {"cg_rows": cg.LAUNCHES, "chol_solve": chol.LAUNCHES,
+                "chol_by_shape": dict(chol.LAUNCHES_BY_SHAPE)}
     if launches["cg_rows"] <= 0:
         raise RuntimeError("main path ran no CG kernel launch")
     solved, budget, box = check_solution(torch, res_auto, Qb, B_AUTO, "auto")
@@ -545,12 +575,14 @@ def phase_ineq(torch, card):
         raise RuntimeError("ineq problem is outside the tail route's rule")
     torch.cuda.synchronize()
     cg.LAUNCHES = chol.LAUNCHES = 0
+    chol.LAUNCHES_BY_SHAPE.clear()
     t0 = time.perf_counter()
     res = solve_qp_batch_auto(Q, settings, INEQ_SHARED)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"cg_rows": cg.LAUNCHES, "chol_solve": chol.LAUNCHES}
-    if min(launches.values()) <= 0:
+    launches = {"cg_rows": cg.LAUNCHES, "chol_solve": chol.LAUNCHES,
+                "chol_by_shape": dict(chol.LAUNCHES_BY_SHAPE)}
+    if min(launches["cg_rows"], launches["chol_solve"]) <= 0:
         raise RuntimeError(f"ineq path missed a kernel: launches {launches}")
     eq, ineq, box = check_ineq(torch, res, Q, B, "ineq")
     # the search alone, for what the tail had to refine: the instances
@@ -638,7 +670,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(1)
-    from ssqp_tpu_torch.ops import _build
+    from ssqp_tpu_torch.ops import _build, chol
 
     card = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -666,8 +698,15 @@ def main():
              "chol_solve": {"frontier": main_launches["chol_solve"],
                             "ineq": ineq_launches["chol_solve"]}}
     head = ktimes[CG_TIMED[0][0]]
-    ck, cp, cl = ctimes[CHOL_TIMED[0]]
+    ch = ctimes[CHOL_TIMED[0]]
     ch_b, ch_by = chol_bound(*CHOL_TIMED[0])
+    fmt = lambda sh: "(%d, %d, %d)" % sh
+    by_shape = {p: {fmt(sh): c for sh, c in sorted(launches["chol_by_shape"]
+                                                   .items())}
+                for p, launches in (("frontier", main_launches),
+                                    ("ineq", ineq_launches))}
+    shapes_run = set(main_launches["chol_by_shape"]) | set(
+        ineq_launches["chol_by_shape"])
     print(json.dumps({"kernels": [{
         "name": "cg_rows",
         "route": "cuda",
@@ -700,18 +739,21 @@ def main():
         "replaces": "ssqp_tpu/ops/pallas_chol.py:43",
         "launches": sum(paths["chol_solve"].values()),
         "launches_by_path": paths["chol_solve"],
+        "launches_by_shape": by_shape,
+        "body_by_shape": {fmt(sh): chol.body(sh[1], sh[2])
+                          for sh in sorted(shapes_run | set(CHOL_TIMED))},
         "max_abs_err": chol_worst,
-        "ms": ck,
-        "plain_ms": cp,
+        **ch,  # ms, plain_ms, library_ms
         "bound_ms": ch_b,
         "bound_by": ch_by,
-        "library_ms": cl,
-        "shape": "(B, n, K) = (%d, %d, %d), f32" % CHOL_TIMED[0],
-        "other_shapes": [{
-            "shape": "(B, n, K) = (%d, %d, %d), f32" % sh,
-            "ms": ctimes[sh][0], "plain_ms": ctimes[sh][1],
-            "library_ms": ctimes[sh][2], "bound_ms": chol_bound(*sh)[0],
-            "bound_by": chol_bound(*sh)[1]} for sh in CHOL_TIMED[1:]],
+        "shape": "(B, n, K) = %s, f32" % fmt(CHOL_TIMED[0]),
+        "other_shapes": [dict(shape="(B, n, K) = %s, f32" % fmt(sh),
+                              **ctimes[sh], bound_ms=chol_bound(*sh)[0],
+                              bound_by=chol_bound(*sh)[1])
+                         for sh in CHOL_TIMED[1:]],
+        "ptxas": [{"kernel": k, "registers": r, "spill_stores": st,
+                   "spill_loads": ld} for k, r, st, ld, _ in ptxas
+                  if "chol_" in k],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ from collections import defaultdict
 
 GROUPS = (  # first match wins; matched against the kernel's name
     ("cg_kernel", re.compile(r"cg_rows_(tc_)?kernel")),
-    ("chol_kernel", re.compile(r"chol_solve_kernel")),
+    # before library_cholesky, whose "chol" also matches the port's kernels
+    ("chol_kernel", re.compile(r"chol_solve_(blocked_)?kernel")),
     ("library_qr", re.compile(r"geqr|larf|orgqr|householder", re.I)),
     ("library_cholesky", re.compile(r"potr|trsm|trsv|chol", re.I)),
     ("matmul", re.compile(r"gemm|gemv|cutlass|sm90_xmma|ampere_", re.I)),

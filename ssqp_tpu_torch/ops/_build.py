@@ -51,13 +51,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i32
     lib.ssqp_cg_tile_rows_f32.argtypes = [i32, i32]  # C, N
     lib.ssqp_cg_tile_rows_f32.restype = i32
-    for name in ("ssqp_chol_fits_smem_f32", "ssqp_chol_fits_smem_f64"):
+    for name in ("ssqp_chol_body_f32", "ssqp_chol_body_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [i32, i32]  # n, K
-        fn.restype = i32
+        fn.restype = ctypes.c_char_p  # the body's name, None on error
     for name in ("ssqp_chol_solve_f32", "ssqp_chol_solve_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, i32, i32, i32, i32, p]  # A, X, B, n, K, smem, stream
+        fn.argtypes = [p, p, p, i32, i32, i32, p]  # A, RHS, X, B, n, K, stream
         fn.restype = i32
 
 

@@ -11,19 +11,38 @@ Singular or non-PD input gives whatever the floored recurrence gives (large,
 inf or NaN); the callers' finite and residual gates reject it.
 
 Dispatch is by device and nothing else: a CPU tensor runs
-:func:`chol_solve_reference` (plain PyTorch); a CUDA tensor launches the
-kernel in ``csrc/chol.cu`` or raises. ``LAUNCHES`` counts kernel launches.
+:func:`chol_solve_reference` (plain PyTorch); a CUDA tensor launches a
+kernel of ``csrc/chol.cu`` or raises. Which of its bodies runs is one rule,
+``chol_body()`` in ``csrc/chol.cu``, which the launch applies and
+:func:`body` reports:
+
+* ``"blocked"``: float32 whose matrix and right-hand sides, padded to a
+  multiple of 16 rows (row stride + 4, K to a multiple of 4), fit a block's
+  shared memory (n <= 224 at K = 1 on an H100; every main-path shape): the
+  factor and both substitutions in panels of 16, two block barriers per
+  panel and phase;
+* ``"rank1-shared"``: the one-row-per-step body with A and RHS in shared
+  memory, for float64 and the float32 shapes outside the blocked rule whose
+  n^2 + n K fit;
+* ``"rank1-device"``: the same body in place on a per-instance copy in
+  device memory (the N x N direct solves, n = 512).
+
+There is no fallback between bodies: a refused launch raises.
+``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_SHAPE`` the same
+launches by (B, n, K).
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
 from ssqp_tpu_torch.ops.cg import _ptr
 
 LAUNCHES = 0
+LAUNCHES_BY_SHAPE = Counter()
 
 
 def chol_solve_reference(A, RHS):
@@ -57,13 +76,29 @@ def chol_solve_reference(A, RHS):
     return x
 
 
+def body(n, K, dtype=torch.float32):
+    """The body a CUDA launch takes for one instance's n and K on the
+    current device: ``"blocked"``, ``"rank1-shared"`` or
+    ``"rank1-device"``."""
+    from ssqp_tpu_torch.ops import _build
+
+    lib = _build.load()
+    fn = (lib.ssqp_chol_body_f32 if dtype == torch.float32
+          else lib.ssqp_chol_body_f64)
+    name = fn(n, K)
+    if name is None:
+        raise RuntimeError("chol kernel: cannot read the device's "
+                           "shared-memory limit")
+    return name.decode()
+
+
 def chol_solve_batch(A, RHS):
     """Solve ``A X = RHS`` for a batch of SPD matrices, A (B, n, n), RHS
     (B, n, K) -> X (B, n, K).
 
     A CPU tensor runs :func:`chol_solve_reference`; a CUDA tensor launches
-    the kernel (float32 or float64, any n and K, no padding) and raises on
-    anything it cannot take.
+    the kernel body :func:`body` names (float32 or float64, any n and K) and
+    raises on anything it cannot take.
     """
     global LAUNCHES
     if A.device.type == "cpu" and RHS.device.type == "cpu":
@@ -84,28 +119,25 @@ def chol_solve_batch(A, RHS):
             f"chol_solve_batch: RHS is {tuple(RHS.shape)} {RHS.dtype} on "
             f"{RHS.device}, expected ({Bn}, {n}, K) {dtype} on {dev}")
     K = RHS.shape[2]
-    X = RHS.contiguous().clone()
     if Bn == 0 or n == 0 or K == 0:
-        return X
+        return RHS.contiguous().clone()
     from ssqp_tpu_torch.ops import _build
 
     lib = _build.load()
     f32 = dtype == torch.float32
-    fits = (lib.ssqp_chol_fits_smem_f32 if f32
-            else lib.ssqp_chol_fits_smem_f64)
     solve = lib.ssqp_chol_solve_f32 if f32 else lib.ssqp_chol_solve_f64
     with torch.cuda.device(dev):
-        smem = fits(n, K)
-        if smem < 0:
-            raise RuntimeError("chol kernel: cannot read the device's "
-                               "shared-memory limit")
-        # the shared-memory form only reads A; the other factors in place
-        Aw = A.contiguous() if smem else A.contiguous().clone()
+        # the shared-memory bodies only read A; the other factors in place
+        Aw = A.contiguous()
+        if body(n, K, dtype) == "rank1-device":
+            Aw = Aw.clone()
+        R = RHS.contiguous()
+        X = torch.empty_like(R)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = solve(_ptr(Aw), _ptr(X), ctypes.c_int(Bn), ctypes.c_int(n),
-                    ctypes.c_int(K), ctypes.c_int(smem),
-                    ctypes.c_void_p(stream))
+        err = solve(_ptr(Aw), _ptr(R), _ptr(X), ctypes.c_int(Bn),
+                    ctypes.c_int(n), ctypes.c_int(K), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"chol kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[(Bn, n, K)] += 1
     return X

@@ -17,8 +17,13 @@ Tolerances:
     4x the plain float32 version's (one-pass TF32 would be ~1e3x);
   * Cholesky kernel vs plain version (both on the card, SPD batches of
     condition number 100): float32 1e-4 and float64 1e-10, relative to
-    max|X| (the same recurrence in another summation order); on non-PD
+    max|X| (the same recurrence in another summation order), and the float64
+    residual |A X - RHS| within 1e-2 (float32) and 1e-9 (float64); on non-PD
     input neither returns a solution;
+  * the float32 blocked Cholesky body: as above against the plain version;
+    bit for bit where only data it never reads differ (the lower triangle)
+    or where the same instance is solved in another batch (each instance is
+    one block, its sums in a fixed order);
   * CUDA vs CPU solves, float64: status and S equal, x within 1e-9;
     float32: the same solved count, objective within 1e-5 relative, S equal
     on at least 90% of instances;
@@ -291,6 +296,115 @@ def test_chol_wrapper_checks(dev):
     assert chol.LAUNCHES == before
     X = chol.chol_solve_batch(A, R)
     assert torch.equal(X, R)
+
+
+# ---- the float32 blocked Cholesky body ------------------------------------
+
+
+def _blocked_max_n(K):
+    """The largest n the blocked body takes at this K (its rule)."""
+    return max(n for n in range(16, 400) if chol.body(n, K) == "blocked")
+
+
+def _chol_check(A, R, Xk):
+    """Xk against the plain version (1e-4 max|X|) and the residual (1e-2)."""
+    Xp = chol.chol_solve_reference(A, R)
+    torch.cuda.synchronize()
+    assert Xk.shape == R.shape and bool(torch.isfinite(Xk).all())
+    assert float((Xk - Xp).abs().max()) <= 1e-4 * float(Xp.abs().max())
+    Ad, Xd, Rd = A.double(), Xk.double(), R.double()
+    assert float((Ad @ Xd - Rd).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("n,kcol", [
+    (n, k) for n in ("16", "17", "31", "32", "33", "47", "110", "111")
+    for k in ("1", "3", "100", "n")] + [("max", "1"), ("max", "3")])
+def test_blocked_chol_panel_edges(dev, n, kcol):
+    """n one below, at and one above a multiple of the 16-row panel, the main
+    path's n = 110, and the largest n the body takes at K = 1 (K = 1, 3
+    there: K = 100 or n does not fit)."""
+    n = _blocked_max_n(1) if n == "max" else int(n)
+    K = n if kcol == "n" else int(kcol)
+    assert chol.body(n, K) == "blocked"
+    rng = np.random.default_rng(1000 + n + K)
+    A = torch.tensor(_spd(rng, 2, n), dtype=torch.float32, device=dev)
+    R = torch.tensor(rng.standard_normal((2, n, K)), dtype=torch.float32,
+                     device=dev)
+    before, by_shape = chol.LAUNCHES, chol.LAUNCHES_BY_SHAPE[(2, n, K)]
+    Xk = chol.chol_solve_batch(A, R)
+    assert chol.LAUNCHES == before + 1
+    assert chol.LAUNCHES_BY_SHAPE[(2, n, K)] == by_shape + 1
+    _chol_check(A, R, Xk)
+
+
+def test_blocked_chol_body_rule(dev):
+    """float32 main-path shapes take the blocked body; float64, and float32
+    past its shared-memory fit, the rank-1 body."""
+    for K in (1, 100, 110):
+        assert chol.body(110, K) == "blocked"
+        assert chol.body(110, K, torch.float64) == "rank1-shared"
+    assert chol.body(512, 1) == "rank1-device"
+    assert chol.body(512, 111) == "rank1-device"
+    nmax = _blocked_max_n(1)
+    assert 200 <= nmax < 256
+    assert chol.body(nmax + 1, 1) != "blocked"
+
+
+@pytest.mark.parametrize("K", [1, 110])
+def test_blocked_chol_reads_the_upper_triangle_only(dev, K):
+    """A not exactly symmetric A: the kernel agrees with the plain version
+    (both read the upper triangle) and gives bit for bit what it gives on
+    the upper triangle mirrored."""
+    rng = np.random.default_rng(K)
+    A = _spd(rng, 3, 110)
+    il = np.tril_indices(110, -1)
+    A_up = A.copy()
+    A_up[:, il[0], il[1]] = A_up[:, il[1], il[0]]  # mirrored upper
+    A[:, il[0], il[1]] += rng.uniform(-0.5, 0.5, (3, il[0].size))
+    At = torch.tensor(A, dtype=torch.float32, device=dev)
+    Au = torch.tensor(A_up, dtype=torch.float32, device=dev)
+    R = torch.tensor(rng.standard_normal((3, 110, K)), dtype=torch.float32,
+                     device=dev)
+    Xk = chol.chol_solve_batch(At, R)
+    assert torch.equal(Xk, chol.chol_solve_batch(Au, R))
+    Xp = chol.chol_solve_reference(At, R)
+    assert float((Xk - Xp).abs().max()) <= 1e-4 * float(Xp.abs().max())
+
+
+@pytest.mark.parametrize("K", [1, 100])
+def test_blocked_chol_non_pd_instances(dev, K):
+    """A negative pivot inside a panel (row 40), one on a panel boundary
+    (row 48) and a NaN on the diagonal (row 70): no fault and no solution
+    there; the other instances bit for bit as when solved alone."""
+    rng = np.random.default_rng(7 + K)
+    A = _spd(rng, 5, 110)
+    A[0, 40, 40] = A[1, 48, 48] = -1.0
+    A[2, 70, 70] = np.nan
+    R = rng.standard_normal((5, 110, K))
+    At = torch.tensor(A, dtype=torch.float32, device=dev)
+    Rt = torch.tensor(R, dtype=torch.float32, device=dev)
+    X = chol.chol_solve_batch(At, Rt)
+    torch.cuda.synchronize()
+    Xn = X.double().cpu().numpy()
+    for b in range(3):
+        assert (not np.isfinite(Xn[b]).all()
+                or np.abs(A[b] @ Xn[b] - R[b]).max() > 1e-2), b
+    assert torch.equal(X[3:], chol.chol_solve_batch(At[3:], Rt[3:]))
+    _chol_check(At[3:], Rt[3:], X[3:])
+
+
+@pytest.mark.parametrize("B", [1, 300])
+@pytest.mark.parametrize("K", [1, 110])
+def test_blocked_chol_batch_sizes(dev, B, K):
+    """One instance, and more blocks than one wave of the card: every
+    instance as the plain version, the first bit for bit as alone."""
+    rng = np.random.default_rng(B + K)
+    A = torch.tensor(_spd(rng, B, 110), dtype=torch.float32, device=dev)
+    R = torch.tensor(rng.standard_normal((B, 110, K)), dtype=torch.float32,
+                     device=dev)
+    X = chol.chol_solve_batch(A, R)
+    _chol_check(A, R, X)
+    assert torch.equal(X[:1], chol.chol_solve_batch(A[:1], R[:1]))
 
 
 def _ineq_class(dtype, N=32, M=2, J=16, B=8, seed=4):
