@@ -20,12 +20,17 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   instances), and the times of the kernel, of the plain
                   version and of the library pair (cholesky_ex +
                   cholesky_solve) at the ineq path's five shapes;
-  5. main       — the frontier-QP path through the port's entry points at
-                  N=256 (solve_qp_batch_auto at B=2048, solve_qp_batch at
-                  B=8192, float32), with the kernels' launch counts and QP/s;
-  6. audit      — 256 of the B=2048 instances re-solved in float64 on the
-                  card; objective gap and ||x - z||_inf quantiles, max gap
-                  < 1e-6;
+  5. main       — the frontier-QP path through solve_qp_batch_auto at
+                  N=256, float32, on each route the JAX rule picks: B=2048
+                  (plain), B=8192 (waves=8, checked) and B=4096 (PDAS
+                  compaction (2, 4, 8), checked), with the kernels' launch
+                  counts per route, the S-iterations per wave and the
+                  instances the waves' rescue re-solved; then plain, waves=8
+                  and c2f(coarse=8) timed at B=8192 in turns on three fresh
+                  grids, and the auto routes at B=2048 and 4096 (QP/s);
+  6. audit      — 256 instances each of the B=2048 (plain) and B=8192
+                  (waves) batches re-solved in float64 on the card;
+                  objective gap and ||x - z||_inf quantiles, max gap < 1e-6;
   7. ineq       — the general-inequality path at BASELINE config 4's widths
                   (N=512, M=10, J=100, float32, B_INEQ instances with shared
                   V, A, b, G, g, d, u and varying q) through
@@ -33,10 +38,17 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   tail refinement; feasibility, launch counts, S-iterations,
                   how many instances the tail refined, and QP/s;
   8. ineq-audit — 32 of those instances re-solved in float64 on the card;
-                  objective gap and ||x - z||_inf quantiles, max gap < 1e-6.
+                  objective gap and ||x - z||_inf quantiles, max gap < 1e-6;
+  9. refined    — the frontier problem in float64 at N=512, B=256 through
+                  solve_qp_batch_refined (float32 search) with method "cg"
+                  and "lu": within 1e-9 of the plain float64 solve on the
+                  card where the search labeled as float64 does, objective
+                  gap < 1e-6 everywhere, the tiers within 1e-9 of each
+                  other, timed; the time of one batched float64 LU of the
+                  refined system's shape; one solve_qp_refined_dd at N=32.
 
-Then one JSON line with the kernel table (each kernel's launches on the two
-paths, for the Cholesky kernel also by (B, n, K) with the body each shape
+Then one JSON line with the protocol times and the refined phase's numbers,
+one JSON line with the kernel table (each kernel's launches on each route, for the Cholesky kernel also by (B, n, K) with the body each shape
 takes, its worst error against the plain version, its time, the plain
 version's, the library call's, the bound and ptxas's registers and spills),
 the nvidia-smi line, and, last,
@@ -47,6 +59,7 @@ benchmark's (bench.py): seed 7, V = HH'/N + 0.5 I, mu ~ U(0, 0.2),
 q ~ N(0, 1) per instance.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -56,7 +69,10 @@ import numpy as np
 
 N_MAIN = 256
 B_AUTO = 2048
+B_MID = 4096
 B_BIG = 8192
+N_REF, B_REF = 512, 256  # the refined tier's frontier, float64 data
+N_DD = 32
 F32_TOL = 5e-4  # kernel vs plain, max |dX| (tests/test_pallas_cg.py's bound)
 F64_TOL = 1e-9
 # Cholesky kernel vs plain version: max |dX| <= CHOL_TOL * max |X| on SPD
@@ -401,10 +417,9 @@ def phase_chol(torch):
     return worst, times
 
 
-def bench_problem(torch, dtype):
+def bench_problem(torch, dtype, N=N_MAIN):
     from ssqp_tpu_torch import make_qp
 
-    N = N_MAIN
     rng = np.random.default_rng(7)
     H = rng.standard_normal((N, N))
     V = H @ H.T / N + 0.5 * np.eye(N)
@@ -423,97 +438,271 @@ def grid(torch, i, B, dtype=None):
 
 def check_solution(torch, res, Qb, B, tag):
     x, status = res.x, res.status
-    if tuple(x.shape) != (B, N_MAIN) or not bool(torch.isfinite(x).all()):
+    if tuple(x.shape) != (B, Qb.N) or not bool(torch.isfinite(x).all()):
         raise RuntimeError(f"{tag}: solution not finite or wrong shape")
     solved = int((status > 0).sum())
     if solved != B:
         raise RuntimeError(f"{tag}: solved {solved}/{B}")
-    budget = float((x.sum(1) - 1.0).abs().max())
+    budget = float((x.double().sum(1) - 1.0).abs().max())
     box = float(torch.maximum(Qb.d - x, x - Qb.u).max())
     if budget > 1e-4 or box > 1e-5:
         raise RuntimeError(f"{tag}: infeasible (budget {budget}, box {box})")
     return solved, budget, box
 
 
-def phase_main(torch, card):
-    from ssqp_tpu_torch import Settings
+class Spy:
+    """Records the calls of ``module.name`` (its keyword arguments) while
+    the wrapped function runs as before; ``undo`` restores it."""
+
+    def __init__(self, module, name, record=None):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.calls = []
+        record = record or (lambda a, k: k)
+
+        def wrapped(*a, **k):
+            self.calls.append(record(a, k))
+            return self.real(*a, **k)
+        setattr(module, name, wrapped)
+
+    def undo(self):
+        setattr(self.module, self.name, self.real)
+
+
+def run_route(torch, fn, Qb, B, tag, counters):
+    """One batch through ``fn`` with every kernel count set to 0 just
+    before and read just after; checks the solution."""
     from ssqp_tpu_torch.ops import cg, chol
-    from ssqp_tpu_torch.parallel.batch import (
-        frontier_batch, solve_qp_batch, solve_qp_batch_auto)
 
-    settings = Settings.for_dtype(torch.float32)
-    Q, V, mu = bench_problem(torch, torch.float32)
-
-    Qb, shared = frontier_batch(Q, grid(torch, 0, B_AUTO))
     torch.cuda.synchronize()
     cg.LAUNCHES = chol.LAUNCHES = 0
     chol.LAUNCHES_BY_SHAPE.clear()
-    res_auto = solve_qp_batch_auto(Qb, settings, shared)
+    res = fn(Qb)
     torch.cuda.synchronize()
     launches = {"cg_rows": cg.LAUNCHES, "chol_solve": chol.LAUNCHES,
                 "chol_by_shape": dict(chol.LAUNCHES_BY_SHAPE)}
     if launches["cg_rows"] <= 0:
-        raise RuntimeError("main path ran no CG kernel launch")
-    solved, budget, box = check_solution(torch, res_auto, Qb, B_AUTO, "auto")
-    st = res_auto.status.float()
-    log("main", f"solve_qp_batch_auto N={N_MAIN} B={B_AUTO} f32: solved "
-        f"{solved}/{B_AUTO}, launches {launches}, S-iterations med "
-        f"{float(st.median()):.0f} max {float(st.max()):.0f}, "
-        f"budget err {budget:.1e}, box err {box:.1e}")
+        raise RuntimeError(f"{tag}: no CG kernel launch")
+    counters[tag] = launches
+    solved, budget, box = check_solution(torch, res, Qb, B, tag)
+    st = res.status.float()
+    log("main", f"{tag} N={Qb.N} B={B} f32: solved {solved}/{B}, launches "
+        f"{launches}, S-iterations med {float(st.median()):.0f} max "
+        f"{float(st.max()):.0f}, budget err {budget:.1e}, box err {box:.1e}")
+    return res
 
+
+def timed(torch, fn):
+    """(ms, result) of one call, CUDA events around it."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    r = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), r
+
+
+def phase_main(torch, card):
+    """The frontier through solve_qp_batch_auto at the three batch sizes
+    whose routes differ (B=2048 plain, B=8192 waves=8, B=4096 compaction
+    (2, 4, 8)), each route checked; then plain, waves=8 and c2f(coarse=8)
+    timed at B=8192 in turns, and the auto routes at 2048 and 4096."""
+    from ssqp_tpu_torch import Settings
+    from ssqp_tpu_torch.parallel import batch
+    from ssqp_tpu_torch.parallel.batch import (
+        frontier_batch, solve_qp_batch, solve_qp_batch_auto,
+        solve_qp_batch_c2f, solve_qp_batch_waves)
+
+    settings = Settings.for_dtype(torch.float32)
+    Q, V, mu = bench_problem(torch, torch.float32)
+    auto = lambda Qg, sh: solve_qp_batch_auto(Qg, settings, sh)
+    counters = {}
+
+    Qb, shared = frontier_batch(Q, grid(torch, 0, B_AUTO))
+    res_auto = run_route(torch, lambda Qg: auto(Qg, shared), Qb, B_AUTO,
+                         "auto B=2048 (plain)", counters)
+
+    # B=8192: the wave route, with what the waves carried and rescued
+    waves = Spy(batch, "solve_qp_batch_waves")
+    compact = Spy(batch, "solve_qp_batch_compact")
+    rescue = Spy(batch, "_rescue_and_attach", lambda a, k: (
+        int((a[1].status <= 0).sum()), int(k["force"].sum())))
     QbB, sharedB = frontier_batch(Q, grid(torch, 0, B_BIG))
-    res_big = solve_qp_batch(QbB, settings, shared=sharedB)
-    solved, budget, box = check_solution(torch, res_big, QbB, B_BIG, "batch")
-    log("main", f"solve_qp_batch N={N_MAIN} B={B_BIG} f32: solved "
-        f"{solved}/{B_BIG}, budget err {budget:.1e}, box err {box:.1e}")
+    res_big = run_route(torch, lambda Qg: auto(Qg, sharedB), QbB, B_BIG,
+                        "auto B=8192 (waves=8)", counters)
+    if waves.calls != [dict(waves=8)] or compact.calls:
+        raise RuntimeError(f"B={B_BIG}: route waves {waves.calls}, compact "
+                           f"{compact.calls}; the rule picks waves=8")
+    failed, forced = rescue.calls[0]
+    W = 8
+    st = res_big.status.reshape(B_BIG // W, W).float()
+    per_wave = [(float(st[:, k].median()), int(st[:, k].max()))
+                for k in range(W)]
+    log("main", f"waves=8 at B={B_BIG}: S-iterations per wave (median, max) "
+        f"{per_wave}; failed before the rescue {failed}, forced {forced}")
+    waves.calls.clear()
 
-    rates = {}
-    for B, fn in ((B_AUTO, lambda Qg, sh: solve_qp_batch_auto(Qg, settings, sh)),
-                  (B_BIG, lambda Qg, sh: solve_qp_batch(Qg, settings, shared=sh))):
-        ms = []
+    QbC, sharedC = frontier_batch(Q, grid(torch, 0, B_MID))
+    run_route(torch, lambda Qg: auto(Qg, sharedC), QbC, B_MID,
+              "auto B=4096 (compact)", counters)
+    if compact.calls != [dict(shared=sharedC, compact=(2, 4, 8))] \
+            or waves.calls:
+        raise RuntimeError(f"B={B_MID}: route compact {compact.calls}, waves "
+                           f"{waves.calls}; the rule picks (2, 4, 8)")
+    for spy in (waves, compact, rescue):
+        spy.undo()
+
+    protos = {
+        "plain": lambda Qg, sh: solve_qp_batch(Qg, settings, shared=sh),
+        "waves=8": lambda Qg, sh: solve_qp_batch_waves(Qg, settings, sh,
+                                                       waves=8),
+        "c2f(8)": lambda Qg, sh: solve_qp_batch_c2f(Qg, settings, sh,
+                                                    coarse=8)}
+    runs = {k: [] for k in protos}
+    for rep in range(1, 4):  # fresh grids, each protocol in turn
+        Qg, sh = frontier_batch(Q, grid(torch, rep, B_BIG))
+        for name, fn in protos.items():
+            ms, r = timed(torch, lambda: fn(Qg, sh))
+            check_solution(torch, r, Qg, B_BIG, f"timed {name} B={B_BIG}")
+            runs[name].append(ms)
+    for B, tag in ((B_AUTO, "auto B=2048 (plain)"),
+                   (B_MID, "auto B=4096 (compact)")):
         for rep in range(1, 4):
             Qg, sh = frontier_batch(Q, grid(torch, rep, B))
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            r = fn(Qg, sh)
-            end.record()
-            end.synchronize()
-            ms.append(start.elapsed_time(end))
-            check_solution(torch, r, Qg, B, f"timed B={B}")
+            ms, r = timed(torch, lambda: auto(Qg, sh))
+            check_solution(torch, r, Qg, B, f"timed {tag}")
+            runs.setdefault(tag, []).append(ms)
+    rates = {}
+    for name, ms in runs.items():
+        B = B_AUTO if "2048" in name else B_MID if "4096" in name else B_BIG
         best = min(ms)
-        rates[B] = (B / (best / 1e3), ms)
-        log("main", f"N={N_MAIN} B={B} f32: best {best:.1f} ms/batch = "
-            f"{rates[B][0]:.1f} QP/s (runs {', '.join(f'{m:.1f}' for m in ms)}"
-            f" ms) on {card}")
-    return res_auto, launches, rates
+        rates[name] = {"B": B, "qp_per_s": B / (best / 1e3), "ms": ms}
+        log("main", f"{name} N={N_MAIN} B={B} f32: best {best:.1f} ms/batch"
+            f" = {rates[name]['qp_per_s']:.1f} QP/s (runs "
+            f"{', '.join(f'{m:.1f}' for m in ms)} ms) on {card}")
+    return res_auto, res_big, counters, rates
 
 
-def phase_audit(torch, res_auto):
+def phase_audit(torch, res, B, tag="audit"):
+    """256 instances of the grid-0 batch of size B re-solved in float64 on
+    the card; max objective gap < 1e-6."""
     from ssqp_tpu_torch import Settings
     from ssqp_tpu_torch.parallel.batch import frontier_batch, solve_qp_batch
 
     Q64, V, mu = bench_problem(torch, torch.float64)
-    idx = np.linspace(0, B_AUTO - 1, 256).astype(int)
-    lams = grid(torch, 0, B_AUTO).double().cpu().numpy()[idx]
+    idx = np.linspace(0, B - 1, 256).astype(int)
+    lams = grid(torch, 0, B).double().cpu().numpy()[idx]
     Qb64, sh = frontier_batch(Q64, torch.tensor(lams, device="cuda"))
     r64 = solve_qp_batch(Qb64, Settings(), shared=sh)
     x64 = r64.x.cpu().numpy()
     ok64 = r64.status.cpu().numpy() > 0
     if ok64.sum() != len(idx):
         raise RuntimeError(f"f64 audit solved {int(ok64.sum())}/{len(idx)}")
-    x32 = res_auto.x.double().cpu().numpy()[idx]
+    x32 = res.x.double().cpu().numpy()[idx]
     qs = -lams[:, None] * mu[None, :]
     f32v = 0.5 * np.einsum("bi,ij,bj->b", x32, V, x32) + (qs * x32).sum(1)
     f64v = 0.5 * np.einsum("bi,ij,bj->b", x64, V, x64) + (qs * x64).sum(1)
     gaps = np.abs(f32v - f64v) / np.maximum(1.0, np.abs(f64v))
     xinf = np.abs(x32 - x64).max(axis=1)
-    log("audit", f"f64 on card ({int(ok64.sum())}/{len(idx)} refs): objgap "
-        f"{quantiles(gaps)} xinf {quantiles(xinf)}")
+    log(tag, f"B={B}: f64 on card ({int(ok64.sum())}/{len(idx)} refs): "
+        f"objgap {quantiles(gaps)} xinf {quantiles(xinf)}")
     if not gaps.max() < 1e-6:
-        raise RuntimeError(f"objective gap {gaps.max():.3e} >= 1e-6")
+        raise RuntimeError(f"{tag} B={B}: objective gap {gaps.max():.3e} "
+                           ">= 1e-6")
     return float(gaps.max())
+
+
+def objgap(Q, x, x64):
+    """|f(x) - f(x64)| / max(1, |f(x64)|) per instance, in float64."""
+    V, q = Q.V.double(), Q.q.double()
+    f = lambda z: 0.5 * (z * (z @ V.T)).sum(1) + (q * z).sum(1)
+    f64 = f(x64.double())
+    return (f(x.double()) - f64).abs() / f64.abs().clamp(min=1.0)
+
+
+def phase_refined(torch, card):
+    """The refined tier on the frontier problem in float64 at N=512, B=256:
+    float32 search, refinement against the float64 data (CG and LU), each
+    against the plain float64 solve on the card: max |x - x64| < 1e-9 where
+    the search's labels are the float64 solve's, objective gap < 1e-6 on
+    every instance, and the two tiers within 1e-9 of each other;
+    the time of one batched float64 LU factorization of the refined
+    system's shape; one double-double continuation at N=32."""
+    from ssqp_tpu_torch import Settings
+    from ssqp_tpu_torch.ops import cg, chol
+    from ssqp_tpu_torch.parallel.batch import (
+        frontier_batch, solve_qp_batch, solve_qp_batch_refined)
+    from ssqp_tpu_torch.solvers.refine import solve_qp_refined_dd
+
+    Q, _, _ = bench_problem(torch, torch.float64, N=N_REF)
+    Qb, sh = frontier_batch(Q, grid(torch, 0, B_REF, torch.float64))
+    ms64, r64 = timed(torch, lambda: solve_qp_batch(Qb, Settings(),
+                                                    shared=sh))
+    if int((r64.status > 0).sum()) != B_REF:
+        raise RuntimeError("refined: the plain float64 solve failed")
+    out = {"plain_f64_ms": ms64}
+    counters, xs = {}, {}
+    for method in ("cg", "lu"):
+        fn = lambda: solve_qp_batch_refined(
+            Qb, search_dtype=torch.float32, shared=sh, method=method)
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        cg.LAUNCHES = chol.LAUNCHES = 0
+        ms, r = timed(torch, fn)
+        counters[method] = {"cg_rows": cg.LAUNCHES,
+                            "chol_solve": chol.LAUNCHES}
+        # the refinement solves the search's labeled active set: it meets
+        # the float64 solve's x to 1e-9 where the float32 search labeled as
+        # float64 does; where the search's polish pinned a variable within
+        # its tolerance (2^-16) of a bound that float64 keeps free, it is
+        # that set's optimum (the JAX package's refined tier does the same)
+        same = (r.S == r64.S).all(1)
+        dx = (r.x - r64.x).abs().amax(1)
+        gap = objgap(Qb, r.x, r64.x)
+        solved = int((r.status > 0).sum())
+        o = {"ms": ms, "solved": solved, "labels_as_f64": int(same.sum()),
+             "max_abs_dx_same_labels": float(dx[same].max()),
+             "max_abs_dx_other_labels": float(dx[~same].max())
+             if bool((~same).any()) else 0.0,
+             "max_objgap": float(gap.max())}
+        out[method], xs[method] = o, r.x
+        log("refined", f"solve_qp_batch_refined({method}) N={N_REF} "
+            f"B={B_REF} f64 data, f32 search: solved {solved}/{B_REF}; "
+            f"labels as the f64 solve's on {o['labels_as_f64']}, there "
+            f"max|x - x64| {o['max_abs_dx_same_labels']:.3e} (bar 1e-9); "
+            f"elsewhere {o['max_abs_dx_other_labels']:.3e}; max objective "
+            f"gap {o['max_objgap']:.3e}; {ms:.1f} ms, launches "
+            f"{counters[method]}; plain f64 solve {ms64:.1f} ms; on {card}")
+        if (solved != B_REF or not o["max_abs_dx_same_labels"] < 1e-9
+                or not o["max_objgap"] < 1e-6
+                or counters[method]["cg_rows"] <= 0):
+            raise RuntimeError(f"refined {method}: {o}")
+    agree = float((xs["cg"] - xs["lu"]).abs().max())
+    out["max_abs_dx_cg_lu"] = agree
+    log("refined", f"CG and LU tiers agree to {agree:.3e} (bar 1e-9)")
+    if not agree < 1e-9:
+        raise RuntimeError(f"refined: CG and LU differ by {agree:.3e}")
+    n = N_REF + 1  # the refined system: N + M + J rows
+    K = torch.randn(B_REF, n, n, dtype=torch.float64, device="cuda") \
+        + n * torch.eye(n, dtype=torch.float64, device="cuda")
+    lu_ms = [timed(torch, lambda: torch.linalg.lu_factor_ex(K))[0]
+             for _ in range(3)]
+    out["lu_factor_ms"] = lu_ms
+    log("refined", f"torch.linalg.lu_factor_ex at ({B_REF}, {n}, {n}) "
+        f"float64: {', '.join(f'{m:.2f}' for m in lu_ms)} ms on {card}")
+
+    Qd, _, _ = bench_problem(torch, torch.float64, N=N_DD)
+    rd, lo = solve_qp_refined_dd(dataclasses.replace(Qd, q=-0.5 * Qd.q))
+    ok = (int(rd.status) > 0 and bool(torch.isfinite(rd.x).all())
+          and bool(torch.isfinite(lo).all()) and bool((lo != 0).any()))
+    log("refined", f"solve_qp_refined_dd N={N_DD} on the card: status "
+        f"{int(rd.status)}, max|x_lo| {float(lo.abs().max()):.3e}, "
+        f"accepted {ok}")
+    if not ok:
+        raise RuntimeError("refined dd: not finite, not solved or rejected")
+    return out, counters
 
 
 def ineq_problem(torch, dtype, q_seed, B):
@@ -688,25 +877,30 @@ def main():
 
     worst, ktimes, exits = phase_kernel(torch)
     chol_worst, ctimes = phase_chol(torch)
-    res_auto, main_launches, rates = phase_main(torch, card)
-    phase_audit(torch, res_auto)
+    res_auto, res_big, main_launches, rates = phase_main(torch, card)
+    phase_audit(torch, res_auto, B_AUTO)
+    phase_audit(torch, res_big, B_BIG)
     res_ineq, ineq_launches, ineq_rate = phase_ineq(torch, card)
     phase_ineq_audit(torch, res_ineq)
+    refined, ref_launches = phase_refined(torch, card)
 
-    paths = {"cg_rows": {"frontier": main_launches["cg_rows"],
-                         "ineq": ineq_launches["cg_rows"]},
-             "chol_solve": {"frontier": main_launches["chol_solve"],
-                            "ineq": ineq_launches["chol_solve"]}}
+    routes = dict(main_launches)
+    routes["ineq auto B=256 (plain + tail)"] = ineq_launches
+    routes.update({f"refined {m} B={B_REF} N={N_REF}": c
+                   for m, c in ref_launches.items()})
+    paths = {k: {route: c[k] for route, c in routes.items()}
+             for k in ("cg_rows", "chol_solve")}
+    print(json.dumps({"protocols": rates, "refined": refined}))
     head = ktimes[CG_TIMED[0][0]]
     ch = ctimes[CHOL_TIMED[0]]
     ch_b, ch_by = chol_bound(*CHOL_TIMED[0])
     fmt = lambda sh: "(%d, %d, %d)" % sh
     by_shape = {p: {fmt(sh): c for sh, c in sorted(launches["chol_by_shape"]
                                                    .items())}
-                for p, launches in (("frontier", main_launches),
-                                    ("ineq", ineq_launches))}
-    shapes_run = set(main_launches["chol_by_shape"]) | set(
-        ineq_launches["chol_by_shape"])
+                for p, launches in routes.items() if "chol_by_shape" in
+                launches}
+    shapes_run = set().union(*(c.get("chol_by_shape", {})
+                               for c in routes.values()))
     print(json.dumps({"kernels": [{
         "name": "cg_rows",
         "route": "cuda",

@@ -1,8 +1,12 @@
 """Where the time goes in one batch of the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_port.py [ineq|frontier ...]
+    python3 profile_port.py [ineq|frontier|waves|compact ...]
+    python3 profile_port.py protocols [N,B ...]
 
-For each named path (default: both) it builds the problem of chip_smoke.py,
+For each named path (default: frontier and ineq) it builds the problem of
+chip_smoke.py (frontier: N=256, B=2048 through solve_qp_batch_auto, the
+plain route; waves: B=8192, the waves=8 route; compact: B=4096, the
+compaction route; ineq: config 4's widths),
 runs two warm-up batches, times three unprofiled batches on fresh data with
 CUDA events, then runs one more batch under ``torch.profiler`` and prints
 one JSON line: the unprofiled times, the device time of every CUDA kernel
@@ -12,6 +16,16 @@ everything else: elementwise, reductions, indexing), the
 busy share (kernel time over the best unprofiled wall time), launch and
 operator counts, and the host synchronisations. The card's nvidia-smi line
 is printed first. Needs CUDA; writes no file.
+
+``protocols`` times the plain protocol (solve_qp_batch), waves=8
+(solve_qp_batch_waves) and coarse-to-fine (solve_qp_batch_c2f, coarse=8) on
+the frontier problem (float32) at each (N, B) cell given, by default the
+cells of auto_protocol's docstring in the JAX package: one warm-up batch
+each, then three fresh grids with the three protocols in turn, CUDA events
+around each call; one JSON line per cell with every run, the best, QP/s
+and the solved counts. Then the PDAS profile of the plain protocol at
+N=256, B=4096 and 8192: how many instances each identification round ran
+on (the still-changing ones), one JSON line each.
 """
 
 import json
@@ -48,9 +62,87 @@ def paths(torch):
         Q = cs.ineq_problem(torch, torch.float32, 5 + i, cs.B_INEQ)
         return lambda: solve_qp_batch_auto(Q, s32, cs.INEQ_SHARED)
 
+    def auto_at(B):
+        def make(i):
+            Qb, sh = frontier_batch(Qf, cs.grid(torch, i, B))
+            return lambda: solve_qp_batch_auto(Qb, s32, sh)
+        return make
+
     return {"frontier": (frontier, f"N={cs.N_MAIN} B={cs.B_AUTO}"),
+            "waves": (auto_at(cs.B_BIG), f"N={cs.N_MAIN} B={cs.B_BIG} "
+                                         "(waves=8)"),
+            "compact": (auto_at(cs.B_MID), f"N={cs.N_MAIN} B={cs.B_MID} "
+                                           "(compact)"),
             "ineq": (ineq, f"N={cs.N_INEQ} M={cs.M_INEQ} J={cs.J_INEQ} "
                            f"B={cs.B_INEQ}")}
+
+
+# auto_protocol's measured cells in the JAX package's docstring
+# (ssqp_tpu/parallel/batch.py), (N, B)
+PROTOCOL_CELLS = ((128, 1024), (256, 2048), (512, 2048), (1024, 1024),
+                  (1024, 2048), (128, 8192), (256, 8192), (512, 8192),
+                  (1024, 8192))
+
+
+def protocols(torch, cells):
+    import chip_smoke as cs
+    from ssqp_tpu_torch import Settings
+    from ssqp_tpu_torch.parallel.batch import (
+        auto_protocol, frontier_batch, solve_qp_batch, solve_qp_batch_c2f,
+        solve_qp_batch_waves)
+
+    s32 = Settings.for_dtype(torch.float32)
+    protos = {
+        "plain": lambda Q, sh: solve_qp_batch(Q, s32, shared=sh),
+        "waves=8": lambda Q, sh: solve_qp_batch_waves(Q, s32, sh, waves=8),
+        "c2f(8)": lambda Q, sh: solve_qp_batch_c2f(Q, s32, sh, coarse=8)}
+    for N, B in cells:
+        Qf, _, _ = cs.bench_problem(torch, torch.float32, N=N)
+        runs = {k: [] for k in protos}
+        solved = {k: [] for k in protos}
+        for rep in range(4):  # rep 0 is the warm-up
+            Qb, sh = frontier_batch(Qf, cs.grid(torch, 10 * (rep == 0) + rep,
+                                                B))
+            for name, fn in protos.items():
+                ms, r = cs.timed(torch, lambda: fn(Qb, sh))
+                if rep:
+                    runs[name].append(ms)
+                    solved[name].append(int((r.status > 0).sum()))
+        best = {k: min(v) for k, v in runs.items()}
+        print(json.dumps({
+            "cell": {"N": N, "B": B}, "rule": auto_protocol(N, B, True),
+            "runs_ms": runs, "best_ms": best,
+            "qp_per_s": {k: B / (v / 1e3) for k, v in best.items()},
+            "solved": solved,
+            "winner": min(best, key=best.get)}), flush=True)
+
+
+def pdas_profile(torch, B):
+    """The instances each PDAS identification round ran on (round 1, the
+    closed form through the shared W, runs on all B and is not counted)."""
+    import chip_smoke as cs
+    from ssqp_tpu_torch import Settings
+    from ssqp_tpu_torch.parallel.batch import frontier_batch, solve_qp_batch
+    from ssqp_tpu_torch.solvers import ssqp
+
+    Qf, _, _ = cs.bench_problem(torch, torch.float32)
+    Qb, sh = frontier_batch(Qf, cs.grid(torch, 0, B))
+    widths = []
+    real = ssqp._pdas_round
+
+    def counted(Q, settings, Sx, *a):
+        widths.append(Sx.shape[0])
+        return real(Q, settings, Sx, *a)
+
+    ssqp._pdas_round = counted
+    try:
+        solve_qp_batch(Qb, Settings.for_dtype(torch.float32), shared=sh)
+    finally:
+        ssqp._pdas_round = real
+    print(json.dumps({"pdas_profile": {"N": cs.N_MAIN, "B": B},
+                      "instances_per_round": widths,
+                      "share_per_round": [w / B for w in widths]}),
+          flush=True)
 
 
 def profile_path(torch, make, label):
@@ -121,6 +213,12 @@ def main():
     import chip_smoke as cs
 
     print(cs.nvidia_smi_line(), flush=True)
+    if sys.argv[1:2] == ["protocols"]:
+        cells = [tuple(int(v) for v in c.split(",")) for c in sys.argv[2:]]
+        protocols(torch, cells or PROTOCOL_CELLS)
+        for B in (cs.B_MID, cs.B_BIG):
+            pdas_profile(torch, B)
+        return
     wanted = sys.argv[1:] or ["frontier", "ineq"]
     table = paths(torch)
     for name in wanted:

@@ -9,13 +9,19 @@ same function runs its plain PyTorch version; every batched float32 SPD
 solve with n >= 16 likewise runs the hand-written Cholesky kernel in
 ``ops/csrc/chol.cu``.
 
-Ported so far: the batched dense QP path (``solve_qp``, ``solve_qp_batch``,
-``solve_qp_batch_auto``'s plain protocol and its tail refinement at
-N >= 512) — PDAS identification, the S-loop (with the QR row purge at
-M+J >= 16 working rows), the Phase-1 simplex fallback, dual attachment and
-the factorization-free refinement (``solve_qp_batch_tail_refined``,
-``refine_result_cg``). Problems are built on the card unless the caller
-passes ``device="cpu"``.
+Ported so far: the batched dense QP path — PDAS identification, the S-loop
+(with the QR row purge at M+J >= 16 working rows), the Phase-1 simplex
+fallback and dual attachment — with every QP batch protocol that
+``solve_qp_batch_auto`` routes to: plain (``solve_qp_batch``), PDAS
+compaction (``solve_qp_batch_compact``), the grid warm protocols
+(``solve_qp_batch_waves``, ``solve_qp_batch_c2f``, ``solve_qp_batch_warm``)
+and the residual-thresholded tail refinement
+(``solve_qp_batch_tail_refined``); and the refinement tiers: LU
+(``refine_result``), factorization-free CG (``refine_result_cg``), the
+refined solves (``solve_qp_refined``, ``solve_qp_batch_refined``) and the
+double-double continuation (``solve_qp_refined_dd``). The LP engines are
+not ported yet. Problems are built on the card unless the caller passes
+``device="cpu"``.
 """
 
 from ssqp_tpu_torch.types import (
@@ -43,8 +49,19 @@ __all__ = [
     "MC_OK", "MC_INFEASIBLE", "MC_NUMERICAL", "MC_REDUNDANT",
     "MC_NO_CONSTRAINTS", "MC_DEGENERATE_BOUNDS", "MC_NOT_PSD",
     "solve_qp", "solve_qp_batch", "solve_qp_batch_auto", "frontier_batch",
-    "solve_qp_batch_tail_refined", "refine_result_cg",
+    "solve_qp_batch_tail_refined", "solve_qp_batch_compact",
+    "solve_qp_batch_waves", "solve_qp_batch_c2f", "solve_qp_batch_warm",
+    "solve_qp_batch_refined", "stack_qps",
+    "refine_result", "refine_result_cg", "solve_qp_refined",
+    "solve_qp_refined_dd",
 ]
+
+_BATCH = ("solve_qp_batch", "solve_qp_batch_auto", "frontier_batch",
+          "solve_qp_batch_tail_refined", "solve_qp_batch_compact",
+          "solve_qp_batch_waves", "solve_qp_batch_c2f",
+          "solve_qp_batch_warm", "solve_qp_batch_refined", "stack_qps")
+_REFINE = ("refine_result", "refine_result_cg", "solve_qp_refined",
+           "solve_qp_refined_dd")
 
 __version__ = "0.1.0"
 
@@ -53,11 +70,10 @@ def __getattr__(name):  # lazy imports keep the package import light
     if name == "solve_qp":
         from ssqp_tpu_torch.solvers.ssqp import solve_qp
         return solve_qp
-    if name in ("solve_qp_batch", "solve_qp_batch_auto", "frontier_batch",
-                "solve_qp_batch_tail_refined"):
+    if name in _BATCH:
         from ssqp_tpu_torch.parallel import batch
         return getattr(batch, name)
-    if name == "refine_result_cg":
-        from ssqp_tpu_torch.solvers.refine import refine_result_cg
-        return refine_result_cg
+    if name in _REFINE:
+        from ssqp_tpu_torch.solvers import refine
+        return getattr(refine, name)
     raise AttributeError(f"module 'ssqp_tpu_torch' has no attribute {name!r}")

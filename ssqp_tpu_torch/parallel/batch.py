@@ -6,6 +6,13 @@ named in ``shared``, which stay unbatched and broadcast (one covariance V,
 one budget row and one box for a whole efficient-frontier grid). Every solver
 function is batch-first already, so a batch solve is one call; convergence is
 per instance.
+
+The QP protocols: plain (:func:`solve_qp_batch`), PDAS compaction
+(:func:`solve_qp_batch_compact`), the grid warm protocols on sorted q-only
+grids (:func:`solve_qp_batch_waves`, :func:`solve_qp_batch_c2f`), the
+residual-thresholded tail refinement and the refined tier
+(:func:`solve_qp_batch_refined`); :func:`solve_qp_batch_auto` picks among
+them by the JAX package's rule.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ import dataclasses
 import torch
 
 from ssqp_tpu_torch.ops.bmat import mtv, mv, stack_rows
-from ssqp_tpu_torch.types import QP, QP_FIELDS, Result, Settings
+from ssqp_tpu_torch.types import (
+    QP, QP_FIELDS, Result, Settings, as_torch_dtype)
 from ssqp_tpu_torch.utils.precision import highest_matmul
 
 
@@ -48,8 +56,10 @@ def solve_qp_batch(Q: QP, settings: Settings, shared: tuple = ()) -> Result:
 def auto_protocol(N: int, B: int, q_only: bool) -> int:
     """The waves dispatch rule of the JAX package, verbatim: waves=8 iff the
     grid is q-only and the wave width B/8 is at least 1024. The rule was
-    tuned on TPU measurements (see the JAX docstring); it has not been
-    re-measured on a GPU."""
+    tuned on TPU measurements (see the JAX docstring). On an H100 the plain
+    protocol beat waves=8 at every one of those cells (PERF.md,
+    ``profile_port.py protocols``); retuning the rule is left to a
+    performance change."""
     return 8 if (q_only and B % 8 == 0 and B // 8 >= 1024) else 0
 
 
@@ -85,12 +95,13 @@ def solve_qp_batch_auto(Q: QP, settings: Settings = None, shared: tuple = (),
                         waves: int = None, tail: int = None) -> Result:
     """One batch entry point that applies the JAX package's protocol rule.
 
-    The plain protocol runs :func:`solve_qp_batch`; at N >= 512 outside
-    float64 the residual-thresholded tail refinement
-    (:func:`solve_qp_batch_tail_refined`, ``tail=4``, one sweep) follows it.
-    Waves and PDAS compaction are not ported yet and raise
-    ``NotImplementedError`` wherever the rule picks them, rather than run
-    something else. ``None`` means "apply the rule"; explicit values
+    ``waves`` defaults to :func:`auto_protocol` (waves=8 on q-only grids
+    whose wave width B/8 is at least 1024); ``tail`` to 4 at N >= 512
+    outside float64 (the residual-thresholded tail refinement, one sweep);
+    the plain protocol at B >= 4096 takes PDAS compaction ``(2, 4, 8)``.
+    Routes: the tail refinement over whichever protocol, else
+    :func:`solve_qp_batch_waves`, :func:`solve_qp_batch_compact` or
+    :func:`solve_qp_batch`. ``None`` means "apply the rule"; explicit values
     override it."""
     settings = settings or Settings.for_dtype(Q.V.dtype)
     B = Q.batch_size
@@ -106,19 +117,12 @@ def solve_qp_batch_auto(Q: QP, settings: Settings = None, shared: tuple = (),
         return solve_qp_batch_tail_refined(Q, settings, shared, waves=waves,
                                            tail=tail, iters=1,
                                            compact=compact)
-    _check_unported(waves, compact)
-    return solve_qp_batch(Q, settings, shared=shared)
-
-
-def _check_unported(waves: int, compact) -> None:
     if waves > 1:
-        raise NotImplementedError(
-            f"the wave protocol (solve_qp_batch_waves, waves={waves}) is not "
-            "ported yet: ROADMAP.md, queue 1, still to port")
+        return solve_qp_batch_waves(Q, settings, shared, waves=waves)
     if compact:
-        raise NotImplementedError(
-            "PDAS compaction (solve_qp_batch_compact) is not ported yet: "
-            "ROADMAP.md, queue 1, still to port")
+        return solve_qp_batch_compact(Q, settings, shared=shared,
+                                      compact=compact)
+    return solve_qp_batch(Q, settings, shared=shared)
 
 
 @highest_matmul
@@ -129,20 +133,29 @@ def solve_qp_batch_tail_refined(Q: QP, settings: Settings, shared: tuple = (),
                                 max_passes: int = 4) -> Result:
     """Batch solve + residual-thresholded refinement of the worst tail.
 
-    After the batch solve, passes of static width ``B // tail`` gather the
-    instances with the largest float64 KKT residual (:func:`batch_kkt_resid`,
-    argsort), run ``iters`` factorization-free sweeps on them
-    (``solvers/refine.py::refine_result_cg`` with ``exact_sweeps``) and
-    scatter x back, until no instance exceeds ``resid_bound`` (default
-    :func:`_tail_resid_bound`) or ``max_passes`` passes ran. A refined
-    instance leaves the selection. ``resid_bound=0.0`` refines the top
-    ``B // tail`` unconditionally. Statuses and duals are the search's; x
-    keeps the problem's dtype. One host synchronisation per pass."""
+    The batch solve is :func:`solve_qp_batch_waves` when ``waves > 1``,
+    else :func:`solve_qp_batch_compact` when ``compact``, else
+    :func:`solve_qp_batch`. After it, passes of static width ``B // tail``
+    gather the instances with the largest float64 KKT residual
+    (:func:`batch_kkt_resid`, argsort), run ``iters`` factorization-free
+    sweeps on them (``solvers/refine.py::refine_result_cg`` with
+    ``exact_sweeps``) and scatter x back, until no instance exceeds
+    ``resid_bound`` (default :func:`_tail_resid_bound`) or ``max_passes``
+    passes ran. A refined instance leaves the selection. ``resid_bound=0.0``
+    refines the top ``B // tail`` unconditionally. Statuses and duals are
+    the search's; x keeps the problem's dtype. One host synchronisation per
+    pass."""
     from ssqp_tpu_torch.solvers.refine import refine_result_cg
 
     settings = settings_for_shared(settings, shared)
-    _check_unported(waves, compact)
-    res = solve_qp_batch(Q, settings, shared=shared)
+    if waves > 1:
+        res = solve_qp_batch_waves(Q, settings, shared, waves=waves,
+                                   compact=compact)
+    elif compact:
+        res = solve_qp_batch_compact(Q, settings, shared=shared,
+                                     compact=compact)
+    else:
+        res = solve_qp_batch(Q, settings, shared=shared)
 
     B = res.x.shape[0]
     K = max(B // max(tail, 1), 1)
@@ -160,6 +173,215 @@ def solve_qp_batch_tail_refined(Q: QP, settings: Settings, shared: tuple = (),
         rs[idx] = -float("inf")
         p += 1
     return Result(x, res.S, res.status, res.lam, res.gamma)
+
+
+@highest_matmul
+def solve_qp_batch_warm(Q: QP, Sx0, Se0, x0, settings: Settings,
+                        shared: tuple = ()) -> Result:
+    """Warm-started batch solve from per-instance statuses ``Sx0`` (B, N),
+    ``Se0`` (B, J) and feasible points ``x0`` (B, N) (the batched
+    solveQP(Q, S, x0), SSQP.jl:237): the two-pass S-loop of
+    :func:`solve_qp_warm2`, duals attached."""
+    from ssqp_tpu_torch.solvers.ssqp import solve_qp_warm2
+
+    _check_shared(Q, shared)
+    return solve_qp_warm2(Q, Sx0, Se0, x0, settings)
+
+
+@highest_matmul
+def _solve_qp_batch_nodual(Q: QP, settings: Settings, shared: tuple = ()):
+    """Batched auto solve without dual attachment: the search stage of the
+    refined pipeline, whose duals the refinement would discard."""
+    from ssqp_tpu_torch.solvers.ssqp import solve_qp_auto_core
+
+    _check_shared(Q, shared)
+    return solve_qp_auto_core(Q, settings_for_shared(settings, shared))
+
+
+@highest_matmul
+def solve_qp_batch_compact(Q: QP, settings: Settings, shared: tuple = (),
+                           compact=4) -> Result:
+    """Batched auto solve whose PDAS identification runs through
+    :func:`solvers.ssqp._guess_start_batch` (``compact``: an int or a sorted
+    tuple of divisors). Same semantics as :func:`solve_qp_batch`: the same
+    rounds per instance, validation, fallbacks and duals. Without
+    ``multi_free`` there is no PDAS stage, and this is the plain solve."""
+    from ssqp_tpu_torch.solvers.ssqp import (
+        _attach_duals, _guess_start_batch, solve_qp_auto_core)
+
+    _check_shared(Q, shared)
+    settings = settings_for_shared(settings, shared)
+    if not settings.multi_free:
+        return solve_qp_batch(Q, settings, shared)
+    guess = _guess_start_batch(Q, settings, shared=shared, compact=compact)
+    r = solve_qp_auto_core(Q, settings, guess=guess)
+    return _attach_duals(Q, r, settings)
+
+
+def _check_q_only(shared: tuple, name: str) -> None:
+    if not {"V", "A", "G", "b", "g", "d", "u"} <= set(shared):
+        raise ValueError(f"{name} needs a q-only batch (every leaf but q "
+                         f"shared), got shared={shared!r}")
+
+
+@highest_matmul
+def solve_qp_batch_waves(Q: QP, settings: Settings, shared: tuple,
+                         waves: int = 8, compact=0) -> Result:
+    """Wave-parallel warm solve of a sorted q-only grid (frontier grids).
+
+    The grid splits into ``waves`` strided sub-batches: grid point
+    ``i * waves + k`` is slot i of wave k. Wave 0 solves cold
+    (:func:`solve_qp_auto_core`, through :func:`_guess_start_batch` when
+    ``compact``); waves 1..W-1 run in sequence, each slot warm-started
+    (:func:`solve_qp_warm2`, with the carried KKT CG solution) from the
+    same slot of the previous wave, its grid neighbour. A slot carries
+    forward only a state that solved; points downstream of a failed cold
+    slot are forced through the cold rescue, and the duals are attached
+    once over the merged batch (:func:`_rescue_and_attach`).
+
+    The cold wave's PDAS CG budget is cut from 24 to 16 iterations on the
+    JAX package's terms: J == 0, float32, and the budget still the float32
+    tier's default."""
+    from ssqp_tpu_torch.solvers.ssqp import (
+        _guess_start_batch, _where, solve_qp_auto_core, solve_qp_warm2)
+
+    _check_q_only(shared, "solve_qp_batch_waves")
+    _check_shared(Q, shared)
+    settings = settings_for_shared(settings, shared)
+    cold = settings
+    f32_default = Settings.for_dtype(torch.float32).pdas_cg_iters
+    if (Q.J == 0 and as_torch_dtype(settings.dtype) == torch.float32
+            and settings.pdas_cg_iters == f32_default
+            and settings.pdas_cg_iters > 16):
+        cold = dataclasses.replace(settings, pdas_cg_iters=16)
+    N = Q.N
+    B = Q.q.shape[0]
+    W = int(waves)
+    if W < 1 or B % W != 0:
+        raise ValueError(f"waves={waves} must divide the batch size {B}")
+    # strided split: grid point i*W + k -> qg[k, i]
+    qg = Q.q.reshape(B // W, W, N).transpose(0, 1).contiguous()
+
+    Q0 = dataclasses.replace(Q, q=qg[0])
+    guess = (_guess_start_batch(Q0, cold, shared=shared, compact=compact)
+             if compact else None)
+    r0, sol = solve_qp_auto_core(Q0, cold, return_sol=True, guess=guess)
+    Sx, Se, x = r0.S[:, :N], r0.S[:, N:], r0.x
+    parts = [r0]
+    for k in range(1, W):
+        rk, solk = solve_qp_warm2(dataclasses.replace(Q, q=qg[k]), Sx, Se,
+                                  x, settings, with_duals=False, sol0=sol,
+                                  return_sol=True)
+        ok = rk.status > 0  # failed slots keep the neighbour's state
+        Sx = _where(ok, rk.S[:, :N], Sx)
+        Se = _where(ok, rk.S[:, N:], Se)
+        x = _where(ok, rk.x, x)
+        sol = _where(ok, solk, sol)
+        parts.append(rk)
+
+    def merge(leaves):  # wave k slot i -> grid point i*W + k
+        a = torch.stack(leaves, dim=0).transpose(0, 1)
+        return a.reshape((B,) + a.shape[2:])
+
+    merged = Result(merge([r.x for r in parts]), merge([r.S for r in parts]),
+                    merge([r.status for r in parts]))
+    # a failed cold slot taints every point it warm-started
+    force = (r0.status <= 0).unsqueeze(1).expand(B // W, W).reshape(B)
+    return _rescue_and_attach(Q, merged, settings, force=force)
+
+
+def _rescue_and_attach(Q: QP, merged: Result, settings: Settings,
+                       force=None) -> Result:
+    """Shared tail of the grid warm protocols (waves, coarse-to-fine).
+
+    Instances that failed (status <= 0), or that ``force`` marks (warm-
+    started from a failed cold anchor, so their start may be infeasible),
+    re-solve cold: Phase-1 (:func:`init_qp_traced`) and the two-pass loop,
+    on those instances only, gathered with ``Q.take``. One host check of
+    ``need.any()`` stands in for the JAX package's batch-level ``lax.cond``.
+    An instance is written back only where its rescue solved. Then one
+    dual attachment over the whole batch."""
+    from ssqp_tpu_torch.solvers.phase1 import init_qp_traced
+    from ssqp_tpu_torch.solvers.ssqp import (
+        _attach_duals, _where, solve_qp_warm2)
+
+    need = merged.status <= 0
+    if force is not None:
+        need = need | force
+    x, S, status = merged.x, merged.S, merged.status.to(torch.int32)
+    if bool(need.any()):
+        idx = need.nonzero().squeeze(1)
+        Qn = Q.take(idx)
+        x0, Sx0, Se0, st1 = init_qp_traced(Qn, settings)
+        rr = solve_qp_warm2(Qn, Sx0, Se0, x0, settings, pre_status=st1,
+                            with_duals=False)
+        fix = rr.status > 0
+        x, S, status = x.clone(), S.clone(), status.clone()
+        x[idx] = _where(fix, rr.x, x[idx])
+        S[idx] = _where(fix, rr.S, S[idx])
+        status[idx] = torch.where(fix, rr.status, status[idx])
+    return _attach_duals(Q, Result(x, S, status), settings)
+
+
+@highest_matmul
+def solve_qp_batch_c2f(Q: QP, settings: Settings, shared: tuple,
+                       coarse: int = 8) -> Result:
+    """Coarse-to-fine warm solve of a sorted q-only grid.
+
+    The coarse subgrid (every ``coarse``-th point) solves cold; then every
+    grid point i warm-starts from its nearest coarse point,
+    ``clip(round(i / coarse), 0, C - 1)`` (round half to even, as
+    ``jnp.round``), in one batched warm pass; then the cold rescue of
+    failed points and of points whose anchor failed, and the duals
+    (:func:`_rescue_and_attach`)."""
+    from ssqp_tpu_torch.solvers.ssqp import solve_qp_auto_core, solve_qp_warm2
+
+    _check_q_only(shared, "solve_qp_batch_c2f")
+    _check_shared(Q, shared)
+    settings = settings_for_shared(settings, shared)
+    N = Q.N
+    B = Q.q.shape[0]
+    if coarse < 1 or B % coarse != 0:
+        raise ValueError(f"coarse={coarse} must divide the batch size {B}")
+    C = B // coarse
+    rc = solve_qp_auto_core(
+        dataclasses.replace(Q, q=Q.q[::coarse].contiguous()), settings)
+    near = _c2f_anchors(B, coarse, Q.device)
+    rw = solve_qp_warm2(Q, rc.S[near, :N], rc.S[near, N:], rc.x[near],
+                        settings, with_duals=False)
+    return _rescue_and_attach(Q, rw, settings, force=(rc.status <= 0)[near])
+
+
+def _c2f_anchors(B: int, coarse: int, device=None):
+    """The coarse point each grid point of :func:`solve_qp_batch_c2f` starts
+    from: ``clip(round(i / coarse), 0, B // coarse - 1)``, ties to even."""
+    i = torch.arange(B, dtype=torch.float64, device=device)
+    return torch.clamp(torch.round(i / coarse), 0, B // coarse - 1).long()
+
+
+def solve_qp_batch_refined(Q: QP, *, settings: Settings = None,
+                           iters: int = 2, search_dtype=None,
+                           shared: tuple = (), method: str = "cg") -> Result:
+    """Batched high-accuracy solve: the active-set search (duals not
+    attached) in ``search_dtype`` (e.g. float32 on a float64 batch), then
+    per-instance refinement of the final KKT system against the
+    full-precision data, ``method="cg"`` (factorization-free,
+    ``refine_result_cg``) or ``"lu"`` (dense LU, ``refine_result``). No
+    dual certificates; x comes back in float64."""
+    from ssqp_tpu_torch.solvers.refine import refine_result, refine_result_cg
+
+    if method not in ("cg", "lu"):
+        raise ValueError(f"method={method!r}: 'cg' or 'lu'")
+    refine = refine_result_cg if method == "cg" else refine_result
+    settings = settings or Settings.for_dtype(Q.V.dtype)
+    if (search_dtype is not None
+            and as_torch_dtype(search_dtype) != Q.V.dtype):
+        Qs, s_search = Q.astype(search_dtype), Settings.for_dtype(search_dtype)
+    else:
+        Qs, s_search = Q, settings
+    res = _solve_qp_batch_nodual(Qs, s_search, shared=shared)
+    res = Result(res.x.to(Q.V.dtype), res.S, res.status)
+    return refine(Q, res, settings, iters, with_duals=False)
 
 
 def stack_qps(qps) -> QP:

@@ -596,12 +596,39 @@ def _guess_start(Q: QP, settings: Settings, rounds: int = 12):
     return z, Sx, Se, sol
 
 
+def _guess_start_batch(Q: QP, settings: Settings, shared: tuple = (),
+                       rounds: int = 12, compact=4):
+    """Batch-level PDAS identification with compaction (the JAX package's
+    ``_guess_start_batch``): the same rounds per instance as
+    :func:`_guess_start`, with late rounds paying only for the instances
+    still changing.
+
+    ``compact`` is an int >= 1 or a sorted tuple of them (a cascade such as
+    ``(2, 4, 8)``), checked as the JAX package checks it. In the JAX package
+    it sets the static widths ``B // k`` of the buffers that the still-
+    changing instances are gathered into, because XLA needs static shapes.
+    Here :func:`_guess_start` already gathers exactly the still-changing
+    instances in every round (``Q.take``), so there are no buffers to size
+    and the widths do not change the schedule: the result is the plain
+    path's, bit for bit. Returns batched ``(z, Sx, Se, sol)``."""
+    from ssqp_tpu_torch.parallel.batch import settings_for_shared
+
+    levels = (compact,) if isinstance(compact, int) else tuple(compact)
+    if not (levels and all(isinstance(k, int) and k >= 1 for k in levels)
+            and list(levels) == sorted(levels)):
+        raise ValueError(f"compact={compact!r}: an int >= 1 or a sorted "
+                         "tuple of them")
+    return _guess_start(Q, settings_for_shared(settings, shared), rounds)
+
+
 def solve_qp_auto_core(Q: QP, settings: Settings,
                        settings_lp: Optional[Settings] = None,
-                       return_sol: bool = False):
+                       return_sol: bool = False, guess=None):
     """Three-stage batch solve, duals not attached (see
     :func:`solve_qp_auto`). Phase-1 and the two-pass loop run on the
-    instances whose PDAS guess was rejected only."""
+    instances whose PDAS guess was rejected only. ``guess`` injects a
+    precomputed PDAS identification ``(z, Sx, Se, sol)`` (from
+    :func:`_guess_start_batch`) in place of :func:`_guess_start`."""
     from ssqp_tpu_torch.solvers.phase1 import init_qp_traced
 
     if not settings.multi_free:
@@ -612,7 +639,8 @@ def solve_qp_auto_core(Q: QP, settings: Settings,
 
     cap = min(settings.max_iter, Q.N + Q.J + 64)
     guess_cap = min(cap, 16)
-    zg, Sxg, Seg, solg = _guess_start(Q, settings)
+    zg, Sxg, Seg, solg = (guess if guess is not None
+                          else _guess_start(Q, settings))
     rg, sol = solve_qp_loop(Q, Sxg, Seg, zg, settings, mf_flag=True,
                             max_iter=guess_cap, cg_iters=settings.cg_iters,
                             sol0=solg, return_sol=True)

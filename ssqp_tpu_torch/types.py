@@ -143,6 +143,13 @@ class QP:
         return dataclasses.replace(
             self, **{f: t.to(device) for f, t in self.leaves().items()})
 
+    def astype(self, dtype) -> "QP":
+        """The same problem with every leaf cast to ``dtype`` (the refined
+        tiers' downcast search copy)."""
+        dtype = as_torch_dtype(dtype)
+        return dataclasses.replace(
+            self, **{f: t.to(dtype) for f, t in self.leaves().items()})
+
     def take(self, idx: torch.Tensor) -> "QP":
         """Sub-batch: index the batched leaves, keep shared ones."""
         return dataclasses.replace(

@@ -30,7 +30,14 @@ Tolerances:
   * the R >= 16 class through solve_qp_batch_auto with tail=4: float64
     status and S equal, x within 1e-6 (the refinement's correction runs in
     float32 on a CUDA tensor and in float64 on a CPU tensor, the JAX
-    package's rule); float32 all solved, objective within 1e-6 relative.
+    package's rule); float32 all solved, objective within 1e-6 relative;
+  * the QP batch protocols (waves, c2f, compaction) on the card against the
+    same call on the CPU: float64 status and S equal, x within 1e-9;
+    float32 all solved, objective within 1e-5 relative;
+  * the refined tiers (float32 search, float64 data): x within 1e-9 of the
+    CPU's and of the plain float64 solve; the LU tier in float64 from one
+    searched point: x and lam within 1e-9; the double-double pair as on
+    the CPU (x_hi 1e-12, x_lo 1e-20).
 """
 
 import dataclasses
@@ -571,3 +578,116 @@ def test_tc_kernel_keeps_float32_accuracy(dev):
     rk, rp = resid(Xk), resid(Xp)
     assert float(rk.max()) <= 4.0 * float(rp.max())
     assert float((rk / bd.norm(dim=1)).max()) < 1e-4
+
+
+# ---- the QP batch protocols and the refinement tiers ------------------------
+
+
+def _card_and_cpu(fn, Qb, dev, *args):
+    """``fn`` on the CPU batch and on its copy on the card, with the card's
+    CG launches counted; both results as numpy."""
+    rc = fn(Qb, *args).numpy()
+    before = cg.LAUNCHES
+    rg = fn(Qb.to(dev), *args).numpy()
+    return rc, rg, cg.LAUNCHES - before
+
+
+def _same_solve(Qb, rc, rg, dtype):
+    assert (rc.status > 0).all() and (rg.status > 0).all()
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(rg.status, rc.status)
+        np.testing.assert_array_equal(rg.S, rc.S)
+        np.testing.assert_allclose(rg.x, rc.x, rtol=0, atol=1e-9)
+    else:
+        fc, fg = _obj(Qb, rc.x), _obj(Qb, rg.x)
+        assert (np.abs(fg - fc) <= 1e-5 * np.maximum(1.0, np.abs(fc))).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("proto", ["waves", "waves_compact", "c2f",
+                                   "compact"])
+def test_protocols_on_card_match_cpu(dev, dtype, proto):
+    """The wave (W=4, with and without compaction), coarse-to-fine (coarse
+    4) and compaction ((2, 4, 8)) protocols on the card against the same
+    call on the CPU, on the N=32, B=16 frontier grid."""
+    Q, lams = _frontier(dtype, B=32)
+    Qb, sh = tb.frontier_batch(Q, lams)
+    st = Settings.for_dtype(dtype)
+    fn = {"waves": lambda Q: tb.solve_qp_batch_waves(Q, st, sh, waves=4),
+          "waves_compact": lambda Q: tb.solve_qp_batch_waves(
+              Q, st, sh, waves=4, compact=4),
+          "c2f": lambda Q: tb.solve_qp_batch_c2f(Q, st, sh, coarse=4),
+          "compact": lambda Q: tb.solve_qp_batch_compact(
+              Q, st, sh, compact=(2, 4, 8))}[proto]
+    rc, rg, launches = _card_and_cpu(fn, Qb, dev)
+    assert launches > 0
+    _same_solve(Qb, rc, rg, dtype)
+
+
+@pytest.mark.parametrize("method", ["cg", "lu"])
+def test_batch_refined_on_card_matches_cpu(dev, method):
+    """float32 search on the card, refinement against float64 data: the
+    refined x within 1e-9 of the CPU's and of the plain float64 solve."""
+    Q, lams = _frontier(torch.float64, B=16)
+    Qb, sh = tb.frontier_batch(Q, lams)
+    fn = lambda Q: tb.solve_qp_batch_refined(
+        Q, search_dtype=torch.float32, shared=sh, method=method)
+    rc, rg, launches = _card_and_cpu(fn, Qb, dev)
+    assert launches > 0
+    x64 = tb.solve_qp_batch(Qb.to(dev), Settings(), shared=sh).x
+    assert (rc.status > 0).all() and (rg.status > 0).all()
+    np.testing.assert_array_equal(rg.status, rc.status)
+    np.testing.assert_array_equal(rg.S, rc.S)
+    assert rg.x.dtype == np.float64
+    np.testing.assert_allclose(rg.x, rc.x, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rg.x, x64.cpu().numpy(), rtol=0, atol=1e-9)
+
+
+def test_refine_result_float64_on_card_matches_cpu(dev):
+    """The LU tier factors in float64 on the card (no float32 pin): from
+    the same searched point, x and the duals as on the CPU."""
+    from ssqp_tpu_torch.solvers import refine as tr
+
+    Q = _ineq_class(torch.float64)
+    shared = ("V", "A", "G", "b", "g", "d", "u")
+    rs = tb._solve_qp_batch_nodual(Q.astype(torch.float32),
+                                   Settings.for_dtype(torch.float32), shared)
+    res = tb.Result(rs.x.double(), rs.S, rs.status)
+    rc = tr.refine_result(Q, res, Settings(), 2).numpy()
+    resg = tb.Result(*(t.to(dev) for t in (res.x, res.S, res.status)))
+    rg = tr.refine_result(Q.to(dev), resg, Settings(), 2).numpy()
+    assert (rc.status > 0).all()
+    np.testing.assert_allclose(rg.x, rc.x, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rg.lam, rc.lam, rtol=0, atol=1e-9)
+
+
+def test_refined_dd_on_card(dev):
+    """The double-double continuation of a problem on the card: the same
+    pair as on the CPU (its sweeps run in host numpy either way)."""
+    from ssqp_tpu_torch.solvers import refine as tr
+
+    Q, _ = _frontier(torch.float64, N=16)
+    rc, lc = tr.solve_qp_refined_dd(Q)
+    rg, lg = tr.solve_qp_refined_dd(Q.to(dev))
+    assert int(rg.status) > 0 and lg.device.type == "cuda"
+    np.testing.assert_allclose(rg.x.cpu().numpy(), rc.x.numpy(), rtol=0,
+                               atol=1e-12)
+    assert torch.isfinite(lg).all() and bool((lg != 0).any())
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=0,
+                               atol=1e-20)
+
+
+def test_auto_routes_on_card(dev, monkeypatch):
+    """solve_qp_batch_auto on the card takes the wave and compaction routes
+    where the JAX rule picks them (recorded, not run at B=8192)."""
+    Q, _ = _frontier(torch.float32, N=16)
+    seen = []
+    for name in ("solve_qp_batch_waves", "solve_qp_batch_compact"):
+        monkeypatch.setattr(tb, name, lambda *a, _n=name, **k: seen.append(
+            (_n, a[0].device.type)))
+    for B, waves in ((8192, None), (4096, None)):
+        Qb, sh = tb.frontier_batch(Q.to(dev), np.linspace(0.0, 2.0, B))
+        tb.solve_qp_batch_auto(Qb, Settings.for_dtype(torch.float32), sh,
+                               waves=waves)
+    assert seen == [("solve_qp_batch_waves", "cuda"),
+                    ("solve_qp_batch_compact", "cuda")]

@@ -200,17 +200,32 @@ def test_auto_protocol_is_the_jax_rule(n, b, q_only):
     assert tb.auto_protocol(n, b, q_only) == jb.auto_protocol(n, b, q_only)
 
 
-def test_batch_auto_plain_route_and_unported_protocols():
+ROUTES = ("solve_qp_batch", "solve_qp_batch_compact", "solve_qp_batch_waves",
+          "solve_qp_batch_tail_refined")
+
+
+def _routes(monkeypatch, mod, calls):
+    """Replace the batch protocols of ``mod`` (the JAX or the port's
+    parallel/batch.py) by recorders of the route solve_qp_batch_auto takes
+    and the protocol arguments it passes on."""
+    for name in ROUTES:
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: calls.append(
+            (_n, {key: k[key] for key in ("waves", "compact", "tail", "iters")
+                  if key in k})))
+
+
+def test_batch_auto_plain_route_and_unported_protocols(monkeypatch):
+    """solve_qp_batch_auto routes as the JAX package's does. Below the
+    rule's sizes it is the plain solve; on a q-only grid at B=8192 it takes
+    waves=8; with waves=0 at B >= 4096 it takes compaction (2, 4, 8); the
+    tail route passes both on. (These protocols were not ported when this
+    test was first written and raised; the large routes are monkeypatched,
+    so no 8192-wide solve runs on the CPU.)"""
     Q, lams = _frontier(np.float64)
     Qbt, sh = tb.frontier_batch(_port(Q), lams)
     ra = tb.solve_qp_batch_auto(Qbt, TSettings(), sh)
     rp = tb.solve_qp_batch(Qbt, TSettings(), shared=sh)
     np.testing.assert_array_equal(ra.x.numpy(), rp.x.numpy())
-    big, shb = tb.frontier_batch(_port(Q), np.linspace(0.0, 2.0, 8192))
-    with pytest.raises(NotImplementedError, match="wave"):
-        tb.solve_qp_batch_auto(big, TSettings(), shb)
-    with pytest.raises(NotImplementedError, match="compaction"):
-        tb.solve_qp_batch_auto(big, TSettings(), shb, waves=0)
     rt = tb.solve_qp_batch_auto(Qbt, TSettings(), sh, tail=4)
     rr = tb.solve_qp_batch_tail_refined(Qbt, TSettings(), sh, tail=4, iters=1)
     for name in ("x", "S", "status", "lam", "gamma"):
@@ -219,6 +234,39 @@ def test_batch_auto_plain_route_and_unported_protocols():
     np.testing.assert_array_equal(rt.S.numpy(), rp.S.numpy())
     with pytest.raises(ValueError):
         tb.solve_qp_batch(Qbt, TSettings(), shared=())
+
+    got, want, names = [], [], []
+    _routes(monkeypatch, tb, got)
+    _routes(monkeypatch, jb, want)
+    q_only = ("V", "A", "G", "b", "g", "d", "u")
+    for n, b, shared, dtype, kw in (
+            (256, 8192, q_only, np.float32, {}),  # waves=8
+            (256, 8192, q_only, np.float32, dict(waves=0)),  # compaction
+            (256, 4096, ("V",), np.float32, {}),  # not q-only: compaction
+            (256, 2048, q_only, np.float32, {}),  # plain
+            (512, 8192, q_only, np.float32, {}),  # tail over waves
+            (512, 4096, q_only, np.float32, {}),  # tail over compaction
+            (512, 8192, q_only, np.float64, {})):  # float64: waves, no tail
+        shapes = dict(V=(n, n), A=(1, n), G=(0, n), q=(n,), b=(1,), g=(0,),
+                      d=(n,), u=(n,))
+        lv = {f: (shapes[f] if f in shared else (b,) + shapes[f])
+              for f in FIELDS}
+        Qt = QP(*(torch.zeros(lv[f], dtype=torch.float64 if dtype ==
+                              np.float64 else torch.float32) for f in FIELDS),
+                n, 1, 0)
+        Qj = jb.QP(*(np.zeros(lv[f], dtype) for f in FIELDS), n, 1, 0)
+        got.clear()
+        want.clear()
+        tb.solve_qp_batch_auto(Qt, TSettings.for_dtype(dtype), shared, **kw)
+        jb.solve_qp_batch_auto(Qj, JSettings.for_dtype(dtype), shared, **kw)
+        assert got == want and len(got) == 1, (n, b, shared, dtype, kw)
+        names.append((got[0][0][len("solve_qp_batch"):], got[0][1]))
+    assert names == [
+        ("_waves", dict(waves=8)), ("_compact", dict(compact=(2, 4, 8))),
+        ("_compact", dict(compact=(2, 4, 8))), ("", {}),
+        ("_tail_refined", dict(waves=8, tail=4, iters=1, compact=0)),
+        ("_tail_refined", dict(waves=0, tail=4, iters=1, compact=(2, 4, 8))),
+        ("_waves", dict(waves=8))]
 
 
 def test_cpu_solves_never_launch_the_kernel(frontier_runs):

@@ -132,30 +132,51 @@ def test_tail_passes_gather_the_worst_and_scatter_back(monkeypatch):
 
 def test_auto_rule_takes_the_tail_at_n512_float32(monkeypatch):
     """The JAX rule: tail=4 with one sweep at N >= 512 outside float64, the
-    plain route otherwise; the unported protocols still raise inside the
-    tail route."""
+    plain route otherwise; the tail route passes the protocol on (waves=8
+    on a q-only grid at B=8192, compaction (2, 4, 8) at B=4096), and the
+    tail refinement runs it: the wave protocol or compaction, then its
+    passes."""
     calls = []
     monkeypatch.setattr(tb, "solve_qp_batch_tail_refined",
                         lambda Q, s, sh, **k: calls.append(("tail", k)))
     monkeypatch.setattr(tb, "solve_qp_batch",
                         lambda Q, s, shared: calls.append(("plain", {})))
-    for n, dtype, want in ((512, torch.float32, ("tail", dict(
-            waves=0, tail=4, iters=1, compact=0))),
-                           (512, torch.float64, ("plain", {})),
-                           (511, torch.float32, ("plain", {}))):
+    for n, b, dtype, want in (
+            (512, 4, torch.float32, ("tail", dict(
+                waves=0, tail=4, iters=1, compact=0))),
+            (512, 8192, torch.float32, ("tail", dict(
+                waves=8, tail=4, iters=1, compact=0))),
+            (512, 4096, torch.float32, ("tail", dict(
+                waves=0, tail=4, iters=1, compact=(2, 4, 8)))),
+            (512, 4, torch.float64, ("plain", {})),
+            (511, 4, torch.float32, ("plain", {}))):
         Q = QP(*(torch.zeros(s, dtype=dtype) for s in
-                 ((n, n), (1, n), (0, n), (4, n), (1,), (0,), (n,), (n,))),
+                 ((n, n), (1, n), (0, n), (b, n), (1,), (0,), (n,), (n,))),
                n, 1, 0)
         calls.clear()
         tb.solve_qp_batch_auto(Q, TSettings.for_dtype(dtype), SHARED)
-        assert calls == [want], (n, dtype)
+        assert calls == [want], (n, b, dtype)
     monkeypatch.undo()
+    # the tail refinement over the wave protocol and over compaction: the
+    # protocol's result, then the passes (resid_bound=0: one pass of B/4)
     Qb = port(ineq_class(np.float64))
-    with pytest.raises(NotImplementedError, match="wave"):
-        tb.solve_qp_batch_tail_refined(Qb, TSettings(), SHARED, waves=8)
-    with pytest.raises(NotImplementedError, match="compaction"):
-        tb.solve_qp_batch_tail_refined(Qb, TSettings(), SHARED,
-                                       compact=(2, 4, 8))
+    seen = []
+    for name in ("solve_qp_batch_waves", "solve_qp_batch_compact"):
+        real = getattr(tb, name)
+        monkeypatch.setattr(tb, name, (lambda name, real: lambda *a, **k: (
+            seen.append((name, {key: k[key] for key in ("waves", "compact")
+                                if key in k})), real(*a, **k))[1])(name, real))
+    rw = tb.solve_qp_batch_tail_refined(Qb, TSettings(), SHARED, waves=4,
+                                        tail=4, iters=1, resid_bound=0.0,
+                                        max_passes=1)
+    rc = tb.solve_qp_batch_tail_refined(Qb, TSettings(), SHARED,
+                                        compact=(2, 4, 8), tail=4, iters=1,
+                                        resid_bound=0.0, max_passes=1)
+    assert seen == [("solve_qp_batch_waves", dict(waves=4, compact=0)),
+                    ("solve_qp_batch_compact", dict(compact=(2, 4, 8)))]
+    assert (rw.status > 0).all() and (rc.status > 0).all()
+    np.testing.assert_array_equal(rw.S.numpy(), rc.S.numpy())
+    np.testing.assert_allclose(rw.x.numpy(), rc.x.numpy(), rtol=0, atol=1e-9)
 
 
 def test_cpu_slice_never_launches_a_kernel(runs):
