@@ -15,11 +15,12 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   matmul's times at the three timed shapes with the FFMA-
                   and 3xTF32-route bounds;
   4. chol       — the batched Cholesky kernel against its plain version on
-                  the card (f32, at the ineq path's shapes, the blocked
-                  body's panel edges, the direct N x N solve, non-PD
-                  instances), and the times of the kernel, of the plain
-                  version and of the library pair (cholesky_ex +
-                  cholesky_solve) at the ineq path's five shapes;
+                  the card (f32, at the ineq path's and the LP path's
+                  shapes, the blocked body's panel edges, the direct N x N
+                  solve, non-PD instances), and the times of the kernel, of
+                  the plain version and of the library pair (cholesky_ex +
+                  cholesky_solve) at the ineq path's five shapes and the
+                  LP path's two;
   5. main       — the frontier-QP path through solve_qp_batch_auto at
                   N=256, float32, on each route the JAX rule picks: B=2048
                   (plain), B=8192 (waves=8, checked) and B=4096 (PDAS
@@ -45,9 +46,22 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   card where the search labeled as float64 does, objective
                   gap < 1e-6 everywhere, the tiers within 1e-9 of each
                   other, timed; the time of one batched float64 LU of the
-                  refined system's shape; one solve_qp_refined_dd at N=32.
+                  refined system's shape; one solve_qp_refined_dd at N=32;
+ 10. lp         — BASELINE config 2's LP routes (bench_suite.py::config2's
+                  generators, float32): the mixed batch (c, b, g per
+                  instance) at B=256 and 4096 through solve_lp_batch_auto
+                  (plain), the c-grid (waves=8) and the rhs grid (dual
+                  waves=8) at B=256 with the plain batch timed beside them,
+                  and criss-cross at N=40, B=256 through
+                  solve_lp_batch_cclp_rescued; per route the LP/s (best of
+                  3 fresh batches), the status histogram, the kernels'
+                  launches and the host syncs; every instance status 1/2 or
+                  the float64 solve's status, optima feasible, float32
+                  within 5e-5 of the port's float64 solve on the card, and
+                  32 instances of that within 1e-7 of scipy's HiGHS.
 
-Then one JSON line with the protocol times and the refined phase's numbers,
+Then one JSON line with the protocol times, the refined phase's numbers and
+the LP routes',
 one JSON line with the kernel table (each kernel's launches on each route, for the Cholesky kernel also by (B, n, K) with the body each shape
 takes, its worst error against the plain version, its time, the plain
 version's, the library call's, the bound and ptxas's registers and spills),
@@ -343,9 +357,10 @@ def spd_batch(rng, B, n, kappa=100.0):
 
 # The Cholesky kernel's timed shapes (B, n, K): the ineq path's batch and
 # tail-pass widths at its n = R = 110 with the Schur and dual-recovery
-# (K = 1), QR-purge (K = R) and dropped-row (K = J) right-hand sides.
+# (K = 1), QR-purge (K = R) and dropped-row (K = J) right-hand sides; the
+# LP path's dual recovery at config 2's n = M + J = 25 (B = 256 and 4096).
 CHOL_TIMED = ((256, 110, 1), (256, 110, 110), (256, 110, 100), (64, 110, 1),
-              (64, 110, 110))
+              (64, 110, 110), (256, 25, 1), (4096, 25, 1))
 # Checked only: the direct N x N solve (the rank-1 body in device memory)
 # and the panel edges of the blocked body (n = 16 k - 1, 16 k, 16 k + 1, the
 # largest n that fits at K = 1).
@@ -848,6 +863,279 @@ def phase_ineq_audit(torch, res):
     return float(gaps.max())
 
 
+# BASELINE config 2 (bench_suite.py::config2): the LP path, N=100, M=5
+# equalities, J=20 inequalities, 0 <= x <= 2; its criss-cross column runs
+# N=40, M=4, J=8
+N_LP, M_LP, J_LP = 100, 5, 20
+N_CC, M_CC, J_CC = 40, 4, 8
+B_LP, B_LP_BIG = 256, 4096
+LP_F32_REL = 5e-5  # float32 vs float64 objective (tests/test_lp.py:205)
+LP_HIGHS_REL = 1e-7  # float64 vs HiGHS objective
+LP_N_HIGHS = 32  # instances per route held against HiGHS
+LP_FEAS_TOL = 1e-4  # primal feasibility, scaled by 1 + max(|b|, |g|)
+
+
+def lp_problem(torch, dtype, route, i, B):
+    """One batch of bench_suite.py::config2's generators on the card, made
+    in float32 (``dtype`` float64 casts the same numbers up), with the
+    shared fields of its family:
+
+    * ``mixed``: A, G from seed 99; c, b, g per instance from 1000 + i;
+    * ``cgrid``: seed 7, c = c0 + t dc, t = linspace(0.001 i, 1 + 0.001 i);
+    * ``rhs``: seed 17, b and g along x0 + t (x1 - x0), t as above;
+    * ``cclp``: N=40, M=4, J=8, A, G from seed 7; c, b, g from 2000 + i."""
+    import dataclasses
+
+    from ssqp_tpu_torch import make_lp
+
+    f = np.float32
+    ts = np.linspace(0.001 * i, 1.0 + 0.001 * i, B).astype(f)
+    if route == "cclp":
+        N, M, J = N_CC, M_CC, J_CC
+    else:
+        N, M, J = N_LP, M_LP, J_LP
+    if route in ("mixed", "cclp"):
+        rng = np.random.default_rng(99 if route == "mixed" else 7)
+        A = rng.standard_normal((M, N)).astype(f)
+        G = rng.standard_normal((J, N)).astype(f)
+        rl = np.random.default_rng((1000 if route == "mixed" else 2000) + i)
+        X0 = rl.uniform(0.1, 1.0, (B, N)).astype(f)
+        c = rl.standard_normal((B, N)).astype(f)
+        b = (X0 @ A.T).astype(f)
+        g = (X0 @ G.T + rl.uniform(0.1, 1.0, (B, J))).astype(f)
+        batched, shared = dict(c=c, b=b, g=g), ("A", "G", "d", "u")
+    elif route == "cgrid":
+        rng = np.random.default_rng(7)
+        x0 = rng.uniform(0.1, 1.0, N).astype(f)
+        A = rng.standard_normal((M, N)).astype(f)
+        G = rng.standard_normal((J, N)).astype(f)
+        b = A @ x0
+        g = G @ x0 + rng.uniform(0.1, 1.0, J).astype(f)
+        c0 = rng.standard_normal(N).astype(f)
+        dc = rng.standard_normal(N).astype(f) * 0.5
+        c = c0
+        batched = dict(c=c0[None, :] + ts[:, None] * dc[None, :])
+        shared = ("A", "b", "G", "g", "d", "u")
+    else:
+        rng = np.random.default_rng(17)
+        A = rng.standard_normal((M, N)).astype(f)
+        G = rng.standard_normal((J, N)).astype(f)
+        c = rng.standard_normal(N).astype(f)
+        x0 = rng.uniform(0.1, 1.0, N).astype(f)
+        x1 = rng.uniform(0.1, 1.0, N).astype(f)
+        slack = rng.uniform(0.1, 1.0, J).astype(f)
+        Xc = x0[None, :] + ts[:, None] * (x1 - x0)[None, :]
+        b, g = A @ x0, G @ x0 + slack
+        batched = dict(b=(Xc @ A.T).astype(f),
+                       g=(Xc @ G.T + slack[None, :]).astype(f))
+        shared = ("c", "A", "G", "d", "u")
+    npdt = f if dtype == torch.float32 else np.float64
+    one = lambda a: a[0] if a.ndim == 2 and a.shape[0] == B else a
+    P = make_lp(one(c), A, one(b), G=G, g=one(g), d=np.zeros(N, f),
+                u=np.full(N, 2.0, f), dtype=npdt, device="cuda")
+    return dataclasses.replace(P, **{
+        k: torch.tensor(v, dtype=dtype, device="cuda")
+        for k, v in batched.items()}), shared
+
+
+def lp_entry(route):
+    """The entry point a user calls for ``route``, (P, settings, shared)."""
+    from ssqp_tpu_torch.parallel.batch import (
+        solve_lp_batch_auto, solve_lp_batch_cclp_rescued)
+
+    if route == "cclp":
+        return lambda P, s, sh: solve_lp_batch_cclp_rescued(P, s, sh)
+    return lambda P, s, sh: solve_lp_batch_auto(P, s, sh)
+
+
+def lp_objective(P, x):
+    """c'x per instance, in float64."""
+    return (P.c.double() * x.double()).sum(-1)
+
+
+def lp_feasibility(torch, P, x):
+    """Per instance max(|Ax - b|, (Gx - g)+, box violation) / (1 + max(|b|,
+    |g|)), in float64."""
+    xd = x.double()
+    A, b, G, g, d, u = (t.double() for t in (P.A, P.b, P.G, P.g, P.d, P.u))
+    eq = (xd @ A.T - b).abs().amax(-1)
+    ineq = (xd @ G.T - g).clamp(min=0).amax(-1)
+    box = torch.maximum(d - xd, xd - u).clamp(min=0).amax(-1)
+    scale = 1.0 + torch.maximum(b.abs().amax(-1), g.abs().amax(-1))
+    return torch.maximum(torch.maximum(eq, ineq), box) / scale
+
+
+def count_syncs(torch, fn):
+    """(result, host syncs) of one call: the synchronizing CUDA calls that
+    torch's sync debug mode reports while ``fn`` runs."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    n = sum("synchroniz" in str(w.message) for w in caught)
+    return out, n
+
+
+def highs_check(P, res64, idx):
+    """The port's float64 objective against scipy's HiGHS on instances
+    ``idx``; returns the largest relative difference."""
+    from scipy.optimize import linprog
+
+    worst = 0.0
+    for i in idx:
+        c, A, b, G, g = ((getattr(P, f)[i] if P.is_batched(f)
+                          else getattr(P, f)).double().cpu().numpy()
+                         for f in ("c", "A", "b", "G", "g"))
+        ref = linprog(c, A_ub=G, b_ub=g, A_eq=A, b_eq=b,
+                      bounds=list(zip(P.d.double().cpu().numpy(),
+                                      P.u.double().cpu().numpy())),
+                      method="highs")
+        st = int(res64.status[i])
+        if not ref.success or st not in (1, 2):
+            raise RuntimeError(f"HiGHS check, instance {i}: HiGHS "
+                               f"{ref.status} ({ref.message}), port status "
+                               f"{st}")
+        f = float(c @ res64.x[i].cpu().numpy())
+        rel = abs(f - ref.fun) / max(1.0, abs(ref.fun))
+        if not rel <= LP_HIGHS_REL:
+            raise RuntimeError(f"HiGHS check, instance {i}: port {f!r}, "
+                               f"HiGHS {ref.fun!r} (rel {rel:.2e})")
+        worst = max(worst, rel)
+    return worst
+
+
+def check_lp(torch, tag, P, res, P64, res64):
+    """The LP checks of one route: statuses, feasibility, float32 against
+    float64 objectives. Returns the status histogram."""
+    st = res.status.cpu().numpy()
+    st64 = res64.status.cpu().numpy()
+    B = st.shape[0]
+    if tuple(res.x.shape) != (B, P.N) or not bool(torch.isfinite(res.x)
+                                                  .all()):
+        raise RuntimeError(f"{tag}: solution not finite or wrong shape")
+    bad = ~np.isin(st, (1, 2)) & (st != st64)
+    if bad.any():
+        raise RuntimeError(f"{tag}: statuses {st[bad][:8]} where the "
+                           f"float64 solve gives {st64[bad][:8]}")
+    opt = np.isin(st, (1, 2))
+    feas = lp_feasibility(torch, P, res.x).cpu().numpy()
+    if opt.any() and not feas[opt].max() <= LP_FEAS_TOL:
+        raise RuntimeError(f"{tag}: infeasible optimum ({feas[opt].max():.2e}"
+                           f" > {LP_FEAS_TOL})")
+    both = opt & np.isin(st64, (1, 2))
+    f32 = lp_objective(P, res.x).cpu().numpy()
+    f64 = lp_objective(P64, res64.x).cpu().numpy()
+    rel = np.abs(f32 - f64) / np.maximum(1.0, np.abs(f64))
+    if both.any() and not rel[both].max() <= LP_F32_REL:
+        raise RuntimeError(f"{tag}: float32 objective {rel[both].max():.2e} "
+                           f"from float64 (bar {LP_F32_REL})")
+    hist = {int(k): int(v) for k, v in zip(*np.unique(st, return_counts=True))}
+    return hist, float(rel[both].max()) if both.any() else 0.0, \
+        float(feas[opt].max()) if opt.any() else 0.0
+
+
+# route label -> (problem, batch, the protocol function the rule must call)
+LP_ROUTES = (("mixed B=256 (plain)", "mixed", B_LP, "solve_lp_batch"),
+             ("mixed B=4096 (plain)", "mixed", B_LP_BIG, "solve_lp_batch"),
+             ("c-grid B=256 (waves=8)", "cgrid", B_LP,
+              "solve_lp_batch_waves"),
+             ("rhs grid B=256 (dual waves=8)", "rhs", B_LP,
+              "solve_lp_batch_waves_rhs"),
+             ("criss-cross N=40 B=256 (rescued)", "cclp", B_LP,
+              "solve_lp_batch_cclp"))
+
+
+def phase_lp(torch, card):
+    """BASELINE config 2's LP routes on the card (module docstring)."""
+    from ssqp_tpu_torch import Settings
+    from ssqp_tpu_torch.ops import cg, chol
+    from ssqp_tpu_torch.parallel import batch
+    from ssqp_tpu_torch.parallel.batch import solve_lp_batch
+
+    s32 = Settings.for_dtype(torch.float32)
+    s64 = Settings()
+    counters, out = {}, {}
+    for tag, route, B, proto in LP_ROUTES:
+        fn = lp_entry(route)
+        P, sh = lp_problem(torch, torch.float32, route, 0, B)
+        spies = {n: Spy(batch, n, lambda a, k: True) for n in (
+            "solve_lp_batch", "solve_lp_batch_waves",
+            "solve_lp_batch_waves_rhs", "solve_lp_batch_cclp")}
+        torch.cuda.synchronize()
+        cg.LAUNCHES = chol.LAUNCHES = 0
+        chol.LAUNCHES_BY_SHAPE.clear()
+        t0 = time.perf_counter()
+        res, syncs = count_syncs(torch, lambda: fn(P, s32, sh))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"cg_rows": cg.LAUNCHES, "chol_solve": chol.LAUNCHES,
+                    "chol_by_shape": dict(chol.LAUNCHES_BY_SHAPE)}
+        called = [n for n, sp in spies.items() if sp.calls]
+        for sp in spies.values():
+            sp.undo()
+        if proto not in called or (proto != "solve_lp_batch_cclp"
+                                   and len(called) != 1):
+            raise RuntimeError(f"{tag}: the rule called {called}, not "
+                               f"{proto}")
+        R = P.M + P.J
+        if R >= 16 and launches["chol_by_shape"].get((B, R, 1), 0) <= 0:
+            raise RuntimeError(f"{tag}: no Cholesky kernel launch at "
+                               f"({B}, {R}, 1): {launches}")
+        if syncs <= 0:
+            raise RuntimeError(f"{tag}: the sync count read 0")
+        counters[tag] = launches
+        P64 = P.astype(torch.float64)
+        res64 = fn(P64, s64, sh)
+        hist, rel, feas = check_lp(torch, tag, P, res, P64, res64)
+        idx = np.linspace(0, B - 1, LP_N_HIGHS).astype(int)
+        highs = highs_check(P64, res64, idx)
+        # the LP/s: best of 3 fresh batches; the c-grid and rhs grid time
+        # the plain protocol beside the rule's waves, in turns
+        timed_fns = {"auto": fn}
+        if route in ("cgrid", "rhs"):
+            timed_fns["plain"] = lambda P_, s, sh_: solve_lp_batch(
+                P_, s, shared=sh_)
+        runs = {k: [] for k in timed_fns}
+        for i in range(1, 4):
+            Pi, _ = lp_problem(torch, torch.float32, route, i, B)
+            for k, f in timed_fns.items():
+                ms, r = timed(torch, lambda: f(Pi, s32, sh))
+                st = r.status.cpu().numpy()
+                if not np.isin(st, (1, 2)).all():
+                    raise RuntimeError(f"{tag} timed {k} batch {i}: "
+                                       f"statuses {np.unique(st)}")
+                runs[k].append(ms)
+        rates = {k: B / (min(v) / 1e3) for k, v in runs.items()}
+        out[tag] = {"B": B, "lp_per_s": rates["auto"], "ms": runs["auto"],
+                    "solved": int(np.isin(res.status.cpu().numpy(),
+                                          (1, 2)).sum()),
+                    "status_hist": hist, "host_syncs": syncs,
+                    "launches": {k: v for k, v in launches.items()
+                                 if k != "chol_by_shape"},
+                    "max_rel_f32_f64": rel, "max_feas": feas,
+                    "max_rel_highs": highs}
+        if "plain" in runs:
+            out[tag]["plain_ms"] = runs["plain"]
+            out[tag]["plain_lp_per_s"] = rates["plain"]
+        log("lp", f"{tag} f32: solved {out[tag]['solved']}/{B}, statuses "
+            f"{hist}, launches {launches}, host syncs {syncs}; f32 vs f64 "
+            f"objective {rel:.2e} (bar {LP_F32_REL}), feasibility "
+            f"{feas:.1e}, f64 vs HiGHS {highs:.2e} on {len(idx)} (bar "
+            f"{LP_HIGHS_REL}); first batch {wall:.2f} s host wall; best "
+            f"{min(runs['auto']):.1f} ms = {rates['auto']:.1f} LP/s (runs "
+            f"{', '.join(f'{m:.1f}' for m in runs['auto'])} ms)"
+            + (f"; plain best {min(runs['plain']):.1f} ms = "
+               f"{rates['plain']:.1f} LP/s (runs "
+               f"{', '.join(f'{m:.1f}' for m in runs['plain'])} ms)"
+               if "plain" in runs else "") + f" on {card}")
+    return out, counters
+
+
 def quantiles(a):
     return {k: float(np.quantile(a, p)) for k, p in
             (("q01", 0.01), ("median", 0.5), ("q99", 0.99), ("max", 1.0))}
@@ -883,14 +1171,16 @@ def main():
     res_ineq, ineq_launches, ineq_rate = phase_ineq(torch, card)
     phase_ineq_audit(torch, res_ineq)
     refined, ref_launches = phase_refined(torch, card)
+    lp, lp_launches = phase_lp(torch, card)
 
     routes = dict(main_launches)
     routes["ineq auto B=256 (plain + tail)"] = ineq_launches
     routes.update({f"refined {m} B={B_REF} N={N_REF}": c
                    for m, c in ref_launches.items()})
+    routes.update({f"lp {tag}": c for tag, c in lp_launches.items()})
     paths = {k: {route: c[k] for route, c in routes.items()}
              for k in ("cg_rows", "chol_solve")}
-    print(json.dumps({"protocols": rates, "refined": refined}))
+    print(json.dumps({"protocols": rates, "refined": refined, "lp": lp}))
     head = ktimes[CG_TIMED[0][0]]
     ch = ctimes[CHOL_TIMED[0]]
     ch_b, ch_by = chol_bound(*CHOL_TIMED[0])

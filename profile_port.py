@@ -1,18 +1,23 @@
 """Where the time goes in one batch of the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_port.py [ineq|frontier|waves|compact ...]
+    python3 profile_port.py [ineq|frontier|waves|compact|lp ...]
     python3 profile_port.py protocols [N,B ...]
 
 For each named path (default: frontier and ineq) it builds the problem of
 chip_smoke.py (frontier: N=256, B=2048 through solve_qp_batch_auto, the
 plain route; waves: B=8192, the waves=8 route; compact: B=4096, the
-compaction route; ineq: config 4's widths),
+compaction route; ineq: config 4's widths; lp: BASELINE config 2's four
+LP routes, one trace each: the mixed batch at B=256 through
+solve_lp_batch_auto (plain), the c-grid (waves=8) and the rhs grid (dual
+waves=8) at B=256, and criss-cross at N=40, B=256 through
+solve_lp_batch_cclp_rescued),
 runs two warm-up batches, times three unprofiled batches on fresh data with
 CUDA events, then runs one more batch under ``torch.profiler`` and prints
 one JSON line: the unprofiled times, the device time of every CUDA kernel
 summed and split into groups (the CG kernel, the Cholesky kernel, the
 library QR, the library Cholesky, matrix products, copies and fills,
-everything else: elementwise, reductions, indexing), the
+the library LU and inverse, everything else: elementwise, reductions,
+indexing), the
 busy share (kernel time over the best unprofiled wall time), launch and
 operator counts, and the host synchronisations. The card's nvidia-smi line
 is printed first. Needs CUDA; writes no file.
@@ -39,6 +44,7 @@ GROUPS = (  # first match wins; matched against the kernel's name
     # before library_cholesky, whose "chol" also matches the port's kernels
     ("chol_kernel", re.compile(r"chol_solve_(blocked_)?kernel")),
     ("library_qr", re.compile(r"geqr|larf|orgqr|householder", re.I)),
+    ("library_lu", re.compile(r"getr[fis]|laswp|batch_lu|lu_factor", re.I)),
     ("library_cholesky", re.compile(r"potr|trsm|trsv|chol", re.I)),
     ("matmul", re.compile(r"gemm|gemv|cutlass|sm90_xmma|ampere_", re.I)),
     ("memcpy_memset", re.compile(r"memcpy|memset", re.I)),
@@ -68,7 +74,21 @@ def paths(torch):
             return lambda: solve_qp_batch_auto(Qb, s32, sh)
         return make
 
-    return {"frontier": (frontier, f"N={cs.N_MAIN} B={cs.B_AUTO}"),
+    def lp(route, B=cs.B_LP):
+        s = s32
+
+        def make(i):
+            P, sh = cs.lp_problem(torch, torch.float32, route, i, B)
+            fn = cs.lp_entry(route)
+            return lambda: fn(P, s, sh)
+        return make
+
+    return {"lp-mixed": (lp("mixed"), f"config 2 mixed B={cs.B_LP}"),
+            "lp-cgrid": (lp("cgrid"), f"config 2 c-grid B={cs.B_LP}"),
+            "lp-rhs": (lp("rhs"), f"config 2 rhs grid B={cs.B_LP}"),
+            "lp-cclp": (lp("cclp"), f"config 2 criss-cross N={cs.N_CC} "
+                                    f"B={cs.B_LP}"),
+            "frontier": (frontier, f"N={cs.N_MAIN} B={cs.B_AUTO}"),
             "waves": (auto_at(cs.B_BIG), f"N={cs.N_MAIN} B={cs.B_BIG} "
                                          "(waves=8)"),
             "compact": (auto_at(cs.B_MID), f"N={cs.N_MAIN} B={cs.B_MID} "
@@ -220,6 +240,9 @@ def main():
             pdas_profile(torch, B)
         return
     wanted = sys.argv[1:] or ["frontier", "ineq"]
+    if "lp" in wanted:
+        i = wanted.index("lp")
+        wanted[i:i + 1] = ["lp-mixed", "lp-cgrid", "lp-rhs", "lp-cclp"]
     table = paths(torch)
     for name in wanted:
         make, label = table[name]

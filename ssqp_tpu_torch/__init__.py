@@ -19,15 +19,22 @@ and the residual-thresholded tail refinement
 (``solve_qp_batch_tail_refined``); and the refinement tiers: LU
 (``refine_result``), factorization-free CG (``refine_result_cg``), the
 refined solves (``solve_qp_refined``, ``solve_qp_batch_refined``) and the
-double-double continuation (``solve_qp_refined_dd``). The LP engines are
-not ported yet. Problems are built on the card unless the caller passes
-``device="cpu"``.
+double-double continuation (``solve_qp_refined_dd``). The LP engines: the
+two-phase simplex (``simplex_lp``, with ``warm_from`` restarting the dual
+simplex; ``simplex_lp_standard``), least-index criss-cross (``solve_lp``),
+the closed-form box LP (``box_lp``) and the LP batch protocols that
+``solve_lp_batch_auto`` routes to: plain (``solve_lp_batch``), the warm
+waves of c-grids (``solve_lp_batch_waves``), the dual-simplex waves of
+rhs grids (``solve_lp_batch_waves_rhs``), and criss-cross
+(``solve_lp_batch_cclp``, ``solve_lp_batch_cclp_rescued``). Problems are
+built on the card unless the caller passes ``device="cpu"``.
 """
 
 from ssqp_tpu_torch.types import (
     DN,
     EO,
     IN,
+    LP,
     MC_DEGENERATE_BOUNDS,
     MC_INFEASIBLE,
     MC_NO_CONSTRAINTS,
@@ -40,12 +47,16 @@ from ssqp_tpu_torch.types import (
     UP,
     Result,
     Settings,
+    lp_from_qp,
+    make_lp,
     make_qp,
+    qp_from_lp,
 )
 
 __all__ = [
     "IN", "DN", "UP", "OE", "EO",
-    "QP", "Settings", "Result", "make_qp",
+    "QP", "LP", "Settings", "Result", "make_qp", "make_lp", "qp_from_lp",
+    "lp_from_qp",
     "MC_OK", "MC_INFEASIBLE", "MC_NUMERICAL", "MC_REDUNDANT",
     "MC_NO_CONSTRAINTS", "MC_DEGENERATE_BOUNDS", "MC_NOT_PSD",
     "solve_qp", "solve_qp_batch", "solve_qp_batch_auto", "frontier_batch",
@@ -54,12 +65,19 @@ __all__ = [
     "solve_qp_batch_refined", "stack_qps",
     "refine_result", "refine_result_cg", "solve_qp_refined",
     "solve_qp_refined_dd",
+    "simplex_lp", "simplex_lp_standard", "solve_lp", "box_lp",
+    "solve_lp_batch", "solve_lp_batch_auto", "solve_lp_batch_waves",
+    "solve_lp_batch_waves_rhs", "solve_lp_batch_cclp",
+    "solve_lp_batch_cclp_rescued", "stack_lps",
 ]
 
 _BATCH = ("solve_qp_batch", "solve_qp_batch_auto", "frontier_batch",
           "solve_qp_batch_tail_refined", "solve_qp_batch_compact",
           "solve_qp_batch_waves", "solve_qp_batch_c2f",
-          "solve_qp_batch_warm", "solve_qp_batch_refined", "stack_qps")
+          "solve_qp_batch_warm", "solve_qp_batch_refined", "stack_qps",
+          "solve_lp_batch", "solve_lp_batch_auto", "solve_lp_batch_waves",
+          "solve_lp_batch_waves_rhs", "solve_lp_batch_cclp",
+          "solve_lp_batch_cclp_rescued", "stack_lps")
 _REFINE = ("refine_result", "refine_result_cg", "solve_qp_refined",
            "solve_qp_refined_dd")
 
@@ -70,6 +88,15 @@ def __getattr__(name):  # lazy imports keep the package import light
     if name == "solve_qp":
         from ssqp_tpu_torch.solvers.ssqp import solve_qp
         return solve_qp
+    if name in ("simplex_lp", "simplex_lp_standard"):
+        from ssqp_tpu_torch.solvers import lp
+        return getattr(lp, name)
+    if name == "solve_lp":
+        from ssqp_tpu_torch.solvers.cclp import solve_lp
+        return solve_lp
+    if name == "box_lp":
+        from ssqp_tpu_torch.solvers.boxlp import box_lp
+        return box_lp
     if name in _BATCH:
         from ssqp_tpu_torch.parallel import batch
         return getattr(batch, name)

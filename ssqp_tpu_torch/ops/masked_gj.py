@@ -1,10 +1,12 @@
 """Masked Gauss-Jordan row purge with fixed shapes, batch-first (PyTorch).
 
-Counterpart of ``ssqp_tpu/ops/masked_gj.py`` (the QP solver's subset). A working
-row is kept iff it is linearly independent of the kept rows before it; a
-dropped row whose eliminated right-hand side still exceeds ``tol`` marks the
-system inconsistent. The elimination runs a fixed number of steps over
-``(B, R, C)`` stacks and returns boolean masks instead of shrinking.
+Counterpart of ``ssqp_tpu/ops/masked_gj.py``. A working row is kept iff it
+is linearly independent of the kept rows before it; a dropped row whose
+eliminated right-hand side still exceeds ``tol`` marks the system
+inconsistent. The elimination runs a fixed number of steps over ``(B, R, C)``
+stacks and returns boolean masks instead of shrinking. The LP engines'
+rank helpers (:func:`independent_rows_gs`, :func:`masked_row_rank`,
+:func:`masked_independent_cols`) run the same sweep.
 """
 
 from __future__ import annotations
@@ -121,6 +123,56 @@ def masked_purge_qr(A, b, row_mask, tol):
     dropped = row_mask & ~keep
     bad_rows = dropped & ((b * rm - pred_b).abs() > tol)
     return keep, bad_rows.any(dim=-1), bad_rows
+
+
+def independent_rows_gs(A, row_mask, tol):
+    """Greedy independent-row subset by modified Gram-Schmidt: a row is kept
+    iff its residual against the span of the kept rows before it (projected
+    twice) exceeds ``tol`` in norm. A (B, R, C), row_mask (B, R) bool.
+    Returns keep (B, R); use on ``A.transpose(1, 2)`` for columns."""
+    Bn, R, C = A.shape
+    rm = row_mask.to(A.dtype)
+    Q = torch.zeros((Bn, R, C), dtype=A.dtype, device=A.device)
+    keep = torch.zeros((Bn, R), dtype=torch.bool, device=A.device)
+    for i in range(R):
+        v = A[:, i, :] * rm[:, i:i + 1]
+        v = v - torch.bmm(Q.transpose(1, 2),
+                          torch.bmm(Q, v.unsqueeze(-1))).squeeze(-1)
+        v = v - torch.bmm(Q.transpose(1, 2),
+                          torch.bmm(Q, v.unsqueeze(-1))).squeeze(-1)
+        nrm = torch.sqrt(torch.sum(v * v, dim=1, keepdim=True))
+        ok = (nrm > tol) & row_mask[:, i:i + 1]
+        safe = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+        Q[:, i, :] = torch.where(ok, v / safe, torch.zeros_like(v))
+        keep[:, i] = ok.squeeze(1)
+    return keep
+
+
+def masked_row_rank(A, row_mask, tol):
+    """Number of independent active rows of A (B, R, C), and their mask."""
+    rm = row_mask.to(A.dtype)
+    _, keep = _gj_sweep(A * rm.unsqueeze(-1), tol, A.shape[-1])
+    return keep.sum(dim=1, dtype=torch.int32), keep
+
+
+def masked_independent_cols(A, col_mask, priority, tol):
+    """Greedy maximal independent column subset, lowest ``priority`` first
+    (the reference's basis repair ``getRowsGJr(A0[:, ic]')``,
+    Simplex.jl:962-977): columns are visited in ascending (priority, index)
+    order and kept iff independent of the kept ones. A (B, R, C),
+    col_mask (B, C) bool, priority (B, C). Returns keep (B, C).
+
+    A stable sort of the priorities orders the columns; the row sweep runs
+    on the permuted transpose and its keep mask is scattered back."""
+    Bn, R, C = A.shape
+    order = torch.argsort(priority, dim=1, stable=True)
+    At = torch.gather(A.transpose(1, 2), 1,
+                      order.unsqueeze(-1).expand(Bn, C, R))
+    cm = torch.gather(col_mask, 1, order).to(A.dtype)
+    _, keep_perm = _gj_sweep(At * cm.unsqueeze(-1), tol, R)
+    keep = torch.zeros((Bn, C), dtype=torch.bool, device=A.device)
+    keep.scatter_(1, order, keep_perm)
+    return keep & col_mask
 
 
 def select_purge(pivot: str, R: int):

@@ -1,7 +1,7 @@
-"""Instance batching for the QP solver (PyTorch).
+"""Instance batching for the QP and LP solvers (PyTorch).
 
-Counterpart of ``ssqp_tpu/parallel/batch.py`` (the QP batch subset). A batch
-is a :class:`QP` whose leaves carry a leading batch axis, except the leaves
+Counterpart of ``ssqp_tpu/parallel/batch.py``. A batch is a :class:`QP` (or
+:class:`LP`) whose leaves carry a leading batch axis, except the leaves
 named in ``shared``, which stay unbatched and broadcast (one covariance V,
 one budget row and one box for a whole efficient-frontier grid). Every solver
 function is batch-first already, so a batch solve is one call; convergence is
@@ -13,6 +13,13 @@ grids (:func:`solve_qp_batch_waves`, :func:`solve_qp_batch_c2f`), the
 residual-thresholded tail refinement and the refined tier
 (:func:`solve_qp_batch_refined`); :func:`solve_qp_batch_auto` picks among
 them by the JAX package's rule.
+
+The LP protocols: the plain two-phase simplex (:func:`solve_lp_batch`),
+criss-cross (:func:`solve_lp_batch_cclp`, with the float64 rescue in
+:func:`solve_lp_batch_cclp_rescued`), the warm waves of c-parametric grids
+(:func:`solve_lp_batch_waves`) and the dual-simplex waves of rhs-parametric
+grids (:func:`solve_lp_batch_waves_rhs`); :func:`solve_lp_batch_auto`
+picks among them by the JAX package's rule.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch
 
 from ssqp_tpu_torch.ops.bmat import mtv, mv, stack_rows
 from ssqp_tpu_torch.types import (
-    QP, QP_FIELDS, Result, Settings, as_torch_dtype)
+    LP, LP_FIELDS, QP, QP_FIELDS, Result, Settings, as_torch_dtype)
 from ssqp_tpu_torch.utils.precision import highest_matmul
 
 
@@ -35,8 +42,8 @@ def settings_for_shared(settings: Settings, shared: tuple) -> Settings:
     return settings
 
 
-def _check_shared(Q: QP, shared: tuple) -> None:
-    for f in QP_FIELDS:
+def _check_shared(Q, shared: tuple) -> None:
+    for f in (QP_FIELDS if isinstance(Q, QP) else LP_FIELDS):
         if Q.is_batched(f) == (f in shared):
             raise ValueError(
                 f"field {f!r} is {'batched' if Q.is_batched(f) else 'unbatched'}"
@@ -256,9 +263,7 @@ def solve_qp_batch_waves(Q: QP, settings: Settings, shared: tuple,
         cold = dataclasses.replace(settings, pdas_cg_iters=16)
     N = Q.N
     B = Q.q.shape[0]
-    W = int(waves)
-    if W < 1 or B % W != 0:
-        raise ValueError(f"waves={waves} must divide the batch size {B}")
+    W = _check_waves(B, waves)
     # strided split: grid point i*W + k -> qg[k, i]
     qg = Q.q.reshape(B // W, W, N).transpose(0, 1).contiguous()
 
@@ -403,3 +408,287 @@ def frontier_batch(Q: QP, lambdas) -> tuple:
     qb = -lam.unsqueeze(1) * Q.q.unsqueeze(0)
     return (dataclasses.replace(Q, q=qb),
             ("V", "A", "G", "b", "g", "d", "u"))
+
+
+def stack_lps(lps) -> LP:
+    """Stack a list of same-shape LPs into one batched LP."""
+    p0 = lps[0]
+    leaves = {f: torch.stack([getattr(p, f) for p in lps]) for f in LP_FIELDS}
+    return dataclasses.replace(p0, **leaves)
+
+
+@highest_matmul
+def solve_lp_batch(P: LP, settings: Settings, shared: tuple = (),
+                   minimize: bool = True) -> Result:
+    """Solve a batch of LPs by the two-phase simplex (SimplexLP per
+    instance)."""
+    from ssqp_tpu_torch.solvers.lp import simplex_lp_traced
+
+    _check_shared(P, shared)
+    return simplex_lp_traced(P, settings, minimize)
+
+
+@highest_matmul
+def solve_lp_batch_cclp(P: LP, settings: Settings,
+                        shared: tuple = ()) -> Result:
+    """Solve a batch of LPs by the least-index criss-cross method (the
+    batched reference ``solveLP``). No Phase-1: infeasible instances exit
+    with status 0 from their own walk. The second-chance basis repair runs
+    on the -1 exits only, after one host check."""
+    from ssqp_tpu_torch.solvers.cclp import cclp_post, cclp_pre, cclp_repair_sf
+
+    _check_shared(P, shared)
+    sf, st = cclp_pre(P, settings, P.batch_size)
+    st = cclp_repair_sf(P, sf, st, settings)
+    return cclp_post(P, sf, st, settings)
+
+
+def _upd(ok, new, old):
+    """Per instance: ``new`` where ``ok``, else ``old`` (tuples)."""
+    from ssqp_tpu_torch.solvers.simplex import _rows_where
+
+    return tuple(_rows_where(ok, n, o) for n, o in zip(new, old))
+
+
+def _merge_waves(parts, B: int):
+    """Wave k slot i -> grid point i * W + k, for a list of per-wave
+    tensors."""
+    a = torch.stack(parts, dim=0).transpose(0, 1)
+    return a.reshape((B,) + a.shape[2:])
+
+
+def _check_waves(B: int, waves: int) -> int:
+    W = int(waves)
+    if W < 1 or B % W != 0:
+        raise ValueError(f"waves={waves} must divide the batch size {B}")
+    return W
+
+
+@highest_matmul
+def solve_lp_batch_waves(P: LP, settings: Settings, shared: tuple,
+                         waves: int = 8, minimize: bool = True) -> Result:
+    """Wave-parallel warm simplex for a c-parametric LP family (constraints
+    shared, cost varying along a sorted grid).
+
+    Everything cost-independent is computed once: the standardization, the
+    row purge and Phase-1 (which never sees ``c``). The grid splits into
+    ``waves`` strided sub-batches (grid point ``i * waves + k`` is slot i
+    of wave k); wave 0 runs Phase-2 from the shared Phase-1 basis, waves
+    1..W-1 from the same slot of the previous wave, its grid neighbour's
+    optimal basis (any basis of the shared constraints is a valid Phase-2
+    start). Only optimal exits (1/2) update the carry. Slots that exit
+    <= 0 re-run Phase-2 once from the Phase-1 start, on those slots only,
+    and take that result where it is 1, 2 or 3."""
+    from ssqp_tpu_torch.solvers.lp import (
+        _bcast, _lp_cost, _lp_finish, _lp_phase1, _lp_phase2, _lp_prep)
+
+    if not {"A", "b", "G", "g", "d", "u"} <= set(shared):
+        raise ValueError("solve_lp_batch_waves needs a c-only batch "
+                         f"(constraints shared), got shared={shared!r}")
+    _check_shared(P, shared)
+    B = P.c.shape[0]
+    W = _check_waves(B, waves)
+    N, J = P.N, P.J
+    prep1 = _lp_prep(P.A, P.G, P.b, P.g, P.d, P.u, settings, 1)
+    start1 = _lp_phase1(prep1, settings)
+    width = B // W
+    prep_w, start = _bcast(prep1, width), _bcast(start1, width)
+    cg = P.c.reshape(width, W, N).transpose(0, 1)
+
+    carry = (start.B, start.S, start.x)
+    parts = []
+    for k in range(W):
+        st, x, Bb, Sb = _lp_phase2(prep_w, _lp_cost(prep_w, cg[k], N, J,
+                                                    minimize),
+                                   carry[0], carry[1], carry[2], settings)
+        carry = _upd((st == 1) | (st == 2), (Bb, Sb, x), carry)
+        parts.append((st, x, Bb, Sb))
+    st2, x2, B3, S3 = (_merge_waves([p[i] for p in parts], B)
+                       for i in range(4))
+
+    prep, startB = _bcast(prep1, B), _bcast(start1, B)
+    c0 = _lp_cost(prep, P.c, N, J, minimize)
+    # rescue: a failed warm slot (numerical / -max_iter; an unbounded
+    # verdict is legitimate from any feasible basis) re-runs Phase-2 once
+    # from the Phase-1 start
+    idx = (st2 <= 0).nonzero().squeeze(1)
+    if idx.numel():
+        n = idx.numel()
+        pr = _bcast(prep1, n)
+        sr = _bcast(start1, n)
+        s_r, x_r, B_r, S_r = _lp_phase2(pr, c0[idx], sr.B, sr.S, sr.x,
+                                        settings)
+        fix = (s_r == 1) | (s_r == 2) | (s_r == 3)
+        cur = (st2[idx], x2[idx], B3[idx], S3[idx])
+        new = _upd(fix, (s_r, x_r, B_r, S_r), cur)
+        st2, x2, B3, S3 = (t.index_copy(0, idx, v) for t, v in
+                           zip((st2, x2, B3, S3), new))
+    return _lp_finish(prep, startB, P.c, c0, st2, x2, B3, S3, N, J,
+                      settings, minimize, P.A, P.G)
+
+
+def solve_lp_batch_auto(P: LP, settings: Settings = None, shared: tuple = (),
+                        waves: int = None, minimize: bool = True) -> Result:
+    """One LP batch entry point that applies the JAX package's protocol
+    rule, verbatim:
+
+    * a c-parametric grid (everything but ``c`` shared) -> the warm waves
+      (:func:`solve_lp_batch_waves`);
+    * an rhs-parametric grid (everything but ``b`` and/or ``g`` shared) ->
+      the dual-simplex waves (:func:`solve_lp_batch_waves_rhs`);
+    * anything else -> the plain two-phase batch (:func:`solve_lp_batch`).
+
+    ``waves=None`` applies the rule (8 where the family allows it, 8
+    divides the batch and the wave width B/8 is at least 4); an explicit
+    value forces it; ``waves=0`` forces the plain batch. The rule was tuned
+    on TPU measurements; ``chip_smoke.py`` times the routes side by side on
+    a GPU (PERF.md)."""
+    settings = settings or Settings.for_dtype(P.c.dtype)
+    sh = set(shared)
+    c_only = {"A", "b", "G", "g", "d", "u"} <= sh and "c" not in sh
+    rhs_only = ({"c", "A", "G", "d", "u"} <= sh
+                and ("b" not in sh or "g" not in sh))
+    B = next((getattr(P, f).shape[0] for f in ("c", "b", "g")
+              if f not in sh), None)
+    if waves is None:
+        waves = 8 if (B is not None and (c_only or rhs_only)
+                      and B % 8 == 0 and B // 8 >= 4) else 0
+    if waves > 1 and c_only:
+        return solve_lp_batch_waves(P, settings, shared, waves=waves,
+                                    minimize=minimize)
+    if waves > 1 and rhs_only:
+        return solve_lp_batch_waves_rhs(P, settings, shared, waves=waves,
+                                        minimize=minimize)
+    return solve_lp_batch(P, settings, shared=shared, minimize=minimize)
+
+
+@highest_matmul
+def solve_lp_batch_waves_rhs(P: LP, settings: Settings, shared: tuple,
+                             waves: int = 8, minimize: bool = True) -> Result:
+    """Wave-parallel warm simplex for rhs-parametric LP families (b and/or
+    g vary along a sorted grid; c and the constraint matrices shared).
+
+    A neighbour's optimal basis stays dual feasible when only the rhs moves,
+    so waves 1..W-1 restart the DUAL simplex from the same slot of the
+    previous wave; wave 0 solves cold by the full two-phase path (its own
+    prep per instance). Every member's standardized rhs is built against
+    the family's keep rows (member 0's purge). Slots that exit < 0 re-solve
+    cold, on those slots only. Then every claimed optimum is checked
+    against its own original rows and demoted to infeasible (0) on a
+    material violation, which a rhs inconsistent on a purged row would
+    show.
+
+    As in the JAX package, a warm dual exit is accepted without the
+    dual-feasibility certificate that :func:`simplex_lp_warm` applies."""
+    from ssqp_tpu_torch.solvers.lp import (
+        _LPStart, _bcast, _lp_cost, _lp_finish, _lp_phase1, _lp_phase2,
+        _lp_phase2_dual, _lp_prep)
+
+    if not {"c", "A", "G", "d", "u"} <= set(shared):
+        raise ValueError("solve_lp_batch_waves_rhs needs an rhs-only batch "
+                         f"(c, A, G, d, u shared), got shared={shared!r}")
+    bat = tuple(f for f in ("b", "g") if f not in shared)
+    if not bat:
+        raise ValueError("solve_lp_batch_waves_rhs: b or g must vary")
+    _check_shared(P, shared)
+    B = getattr(P, bat[0]).shape[0]
+    W = _check_waves(B, waves)
+    N, M, J = P.N, P.M, P.J
+    dtype, dev = P.c.dtype, P.c.device
+    width = B // W
+    bB = P.b.expand(B, M) if "b" not in bat else P.b
+    gB = P.g.expand(B, J) if "g" not in bat else P.g
+
+    prep1 = _lp_prep(P.A, P.G, bB[:1], gB[:1], P.d, P.u, settings, 1)
+    prep_w = _bcast(prep1, width)
+    c0_w = _lp_cost(prep_w, P.c, N, J, minimize)
+    rm = prep1.keep_rows.to(dtype)
+
+    def cold(b_i, g_i):
+        n = b_i.shape[0]
+        prep_i = _lp_prep(P.A, P.G, b_i, g_i, P.d, P.u, settings, n)
+        start_i = _lp_phase1(prep_i, settings)
+        out = _lp_phase2(prep_i, c0_w[:1].expand(n, -1), start_i.B,
+                         start_i.S, start_i.x, settings)
+        return out + (start_i.p1_fail, start_i.p1_code, start_i.infeasible)
+
+    bw = bB.reshape(width, W, M).transpose(0, 1)
+    gw = gB.reshape(width, W, J).transpose(0, 1)
+    st0, x0, B0, S0, pf0, pc0, inf0 = cold(bw[0], gw[0])
+    carry = (B0, S0, x0)  # failed slots carry their own exit; the dual
+    # entry gate and the rescue protect the downstream warm starts
+    parts = [(st0, x0, B0, S0)]
+    for k in range(1, W):
+        b0p = torch.cat([bw[k], gw[k]], dim=1) * rm
+        st, x, Bb, Sb = _lp_phase2_dual(prep_w, c0_w, b0p, carry[0],
+                                        carry[1], carry[2], settings)
+        carry = _upd((st == 1) | (st == 2), (Bb, Sb, x), carry)
+        parts.append((st, x, Bb, Sb))
+    st2, x2, B3, S3 = (_merge_waves([p[i] for p in parts], B)
+                       for i in range(4))
+    zb = torch.zeros(width, dtype=torch.bool, device=dev)
+    p1f = _merge_waves([pf0] + [zb] * (W - 1), B)
+    p1c = _merge_waves([pc0] + [torch.zeros_like(pc0)] * (W - 1), B)
+    infs = _merge_waves([inf0] + [zb] * (W - 1), B)
+
+    # rescue: numerical / budget-exhausted / invalid-warm-start exits
+    # re-solve cold; every rescue verdict (a genuine 0 too) replaces them
+    idx = (st2 < 0).nonzero().squeeze(1)
+    if idx.numel():
+        new = cold(bB[idx], gB[idx])
+        st2, x2, B3, S3, p1f, p1c, infs = (
+            t.index_copy(0, idx, v) for t, v in
+            zip((st2, x2, B3, S3, p1f, p1c, infs), new))
+
+    prep = _bcast(prep1, B)
+    res = _lp_finish(prep, _LPStart(B3, S3, x2, p1f, p1c, infs), P.c,
+                     _lp_cost(prep, P.c, N, J, minimize), st2, x2, B3, S3,
+                     N, J, settings, minimize, P.A, P.G)
+
+    # original-constraint guard: demote claimed optima that violate their
+    # own rows (an unbounded exit's x is no certificate and is left alone)
+    x = res.x
+    v = torch.zeros(B, dtype=dtype, device=dev)
+    scale = torch.ones(B, dtype=dtype, device=dev)
+    if M > 0:
+        v = torch.maximum(v, (mv(P.A, x) - bB).abs().amax(dim=1))
+        scale = torch.maximum(scale, bB.abs().amax(dim=1))
+    if J > 0:
+        v = torch.maximum(v, (mv(P.G, x) - gB).amax(dim=1))
+        scale = torch.maximum(scale, gB.abs().amax(dim=1))
+    bad = ((res.status == 1) | (res.status == 2)) & (
+        v > 100.0 * settings.tol * (1.0 + scale))
+    x, lam, gamma = _upd(~bad, (x, res.lam, res.gamma),
+                         tuple(torch.zeros_like(t) for t in
+                               (x, res.lam, res.gamma)))
+    return Result(x, res.S, torch.where(bad, 0, res.status).to(torch.int32),
+                  lam, gamma)
+
+
+def solve_lp_batch_cclp_rescued(P: LP, settings: Settings,
+                                shared: tuple = ()) -> Result:
+    """Batched criss-cross with a per-instance float64 rescue: instances
+    exiting -1 (numerical) or -max_iter re-solve once as a float64
+    sub-batch on the same device under the float64 tier's default
+    ``Settings()``, and those that succeed are cast back and
+    scattered in. No extra work when every instance solved or the batch is
+    float64 already. (The JAX package pads the sub-batch to a power of two
+    to reuse compiled programs, and pins it to the host CPU for want of a
+    float64 LU on the TPU; neither applies here.)"""
+    res = solve_lp_batch_cclp(P, settings, shared=shared)
+    if P.c.dtype != torch.float32:
+        return res
+    need = (res.status == -1) | (res.status == -settings.max_iter)
+    idx = need.nonzero().squeeze(1)
+    if idx.numel() == 0:
+        return res
+    sub = P.take(idx).astype(torch.float64)
+    r64 = solve_lp_batch_cclp(sub, Settings(), shared=shared)
+    ok = r64.status > 0
+    fix, take = idx[ok], ok.nonzero().squeeze(1)
+    if fix.numel() == 0:
+        return res
+    put = lambda a, b: a.index_copy(0, fix, b[take].to(a.dtype))
+    return Result(put(res.x, r64.x), put(res.S, r64.S),
+                  put(res.status, r64.status), put(res.lam, r64.lam),
+                  put(res.gamma, r64.gamma))

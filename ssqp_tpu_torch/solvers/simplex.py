@@ -14,9 +14,16 @@ indexing (the JAX package's one-hot matmuls were a TPU workaround).
 
 Status codes: 1 unique, 2 infinitely many, 3 unbounded, -1 numerical error,
 -max_iter iteration limit.
+
+:func:`dual_simplex_bounded` is the dual method from a dual-feasible basis
+(the LP engines' Phase-1-skipping restart). Its loop, like the criss-cross
+loop of solvers/cclp.py, runs through :func:`run_chunked`: eight masked
+steps between host checks of the live set.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -170,7 +177,9 @@ def bounded_simplex(c, Amat, b, d, u, B0, S0, x0, real, *, tol, max_iter,
     S = S0.to(torch.int8).clone()
     x = x0.to(dtype).clone()
     A_B0 = torch.gather(Amat, 2, B.unsqueeze(1).expand(Bn, R, R))
-    invB = torch.linalg.inv(A_B0)
+    # a singular start gives non-finite entries (no error), as XLA's inverse
+    # does; the loop's first step then exits -1
+    invB = torch.linalg.inv_ex(A_B0)[0]
     it = torch.zeros(Bn, dtype=torch.int32, device=dev)
     pd = (torch.zeros(Bn, dtype=torch.bool, device=dev) if pre_done is None
           else pre_done.to(torch.bool).clone())
@@ -190,3 +199,196 @@ def bounded_simplex(c, Amat, b, d, u, B0, S0, x0, real, *, tol, max_iter,
     status = torch.where(done, status,
                          torch.full_like(status, -max_iter)).to(torch.int32)
     return status, x, B, S, it
+
+
+class SimplexState(NamedTuple):
+    B: torch.Tensor  # (B, R) int64 basis column indices
+    S: torch.Tensor  # (B, Nt) int8 statuses (IN = basic)
+    x: torch.Tensor  # (B, Nt) values (basic entries refreshed each step)
+    invB: torch.Tensor  # (B, R, R) maintained basis inverse
+    it: torch.Tensor  # (B,) int32
+    done: torch.Tensor  # (B,) bool
+    status: torch.Tensor  # (B,) int32
+
+
+def _rows_where(mask, new, old):
+    return torch.where(mask.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def run_chunked(step, data, st, max_iter: int, chunk: int = 8):
+    """Run ``st = step(*data, st)`` on every instance with ``~done`` and
+    ``it < max_iter`` until none is left: the batched form of a
+    ``lax.while_loop`` whose condition is per instance.
+
+    ``st`` is a NamedTuple of (B, ...) tensors with fields ``it`` and
+    ``done``; ``step`` returns the next state with ``it + 1``. The live set
+    is read on the host (one sync) every ``chunk`` steps and the loop runs
+    on those rows alone; inside a chunk an instance that finishes is frozen
+    by masks, so every instance takes exactly the steps the while loop
+    would give it and keeps its own iteration count."""
+    kind = type(st)
+    Bn = st.done.shape[0]
+    while True:
+        live = (~st.done & (st.it < max_iter)).nonzero().squeeze(1)
+        if live.numel() == 0:
+            return st
+        whole = live.numel() == Bn
+        sub = st if whole else kind(*(t[live] for t in st))
+        dsub = data if whole else tuple(t[live] for t in data)
+        for _ in range(chunk):
+            act = ~sub.done & (sub.it < max_iter)
+            new = step(*dsub, sub)
+            sub = kind(*(_rows_where(act, n, o) for n, o in zip(new, sub)))
+        st = sub if whole else kind(*(o.index_copy(0, live, n)
+                                      for o, n in zip(st, sub)))
+
+
+def dual_feasibility_violation(c, Amat, w, S, nonbasic, real, ud):
+    """Largest signed reduced-cost violation over the eligible nonbasic
+    columns (B,): the measure shared by :func:`dual_simplex_bounded`'s entry
+    gate and the warm restart's exit certificate
+    (solvers/lp.py::simplex_lp_warm)."""
+    h = c - torch.bmm(Amat.transpose(1, 2), w.unsqueeze(-1)).squeeze(-1)
+    v = torch.where(S == DN, -h, torch.where(S == UP, h, torch.zeros_like(h)))
+    v = torch.where(nonbasic & real & (ud > 0), v, torch.zeros_like(v))
+    return v.amax(dim=1).clamp(min=0.0)
+
+
+def dual_gate_tol(c, tol):
+    """Dual-infeasibility threshold per instance (B,): 100x the solver tol,
+    scaled by the cost (1 + max|c|)."""
+    return 100.0 * tol * (1.0 + c.abs().amax(dim=1))
+
+
+def _dual_step(c, Amat, b, d, u, real, ud, fu, st: SimplexState, *, tol):
+    """One dual-simplex iteration for every instance given."""
+    Bn, R, Nt = Amat.shape
+    dtype, dev = c.dtype, c.device
+    ar = torch.arange(Bn, device=dev)
+    eye = torch.eye(R, dtype=dtype, device=dev)
+    B, S, x, it = st.B, st.S, st.x, st.it + 1
+    in_basis = torch.zeros((Bn, Nt), dtype=torch.bool, device=dev)
+    in_basis.scatter_(1, B, True)
+    A_B = torch.gather(Amat, 2, B.unsqueeze(1).expand(Bn, R, R))
+    invB = torch.bmm(st.invB, 2.0 * eye - torch.bmm(A_B, st.invB))
+    E2 = torch.bmm(A_B, invB)
+    drift = (E2 - eye).abs().amax(dim=(1, 2)) > tol ** 0.5
+    cB, db, ub = (torch.gather(v, 1, B) for v in (c, d, u))
+    w = torch.bmm(invB.transpose(1, 2), cB.unsqueeze(-1)).squeeze(-1)
+    h = c - torch.bmm(Amat.transpose(1, 2), w.unsqueeze(-1)).squeeze(-1)
+    xn = torch.where(in_basis, torch.zeros_like(x), x)
+    qv = torch.bmm(invB, (b - torch.bmm(Amat, xn.unsqueeze(-1)).squeeze(-1))
+                   .unsqueeze(-1)).squeeze(-1)
+    x2 = x.scatter(1, B, qv)
+
+    viol_lo = qv < db - tol
+    viol_up = qv > ub + tol
+    viol = viol_lo | viol_up
+    anyv = viol.any(dim=1)
+    elig0 = (~in_basis) & real & (ud > 0)
+    ms = ((h.abs() < tol) & elig0).any(dim=1)
+    status_opt = torch.where(ms, 2, 1)
+
+    # leaving row: largest violation; after Nt steps the least basic index
+    vmag = torch.where(viol_lo, db - qv, torch.where(
+        viol_up, qv - ub, torch.full_like(qv, -_INF)))
+    r_mag = vmag.argmax(dim=1)
+    r_bland = torch.where(viol, B, Nt + 1).argmin(dim=1)
+    r = torch.where(it > Nt, r_bland, r_mag)
+    leave_lo = viol_lo[ar, r]
+
+    rho = invB[ar, r, :]
+    alpha = torch.bmm(Amat.transpose(1, 2), rho.unsqueeze(-1)).squeeze(-1)
+    at_dn = (~in_basis) & (S == DN)
+    at_up = (~in_basis) & (S == UP)
+    lo = leave_lo.unsqueeze(1)
+    elig = real & (ud > 0) & torch.where(
+        lo, (at_dn & (alpha < -tol)) | (at_up & (alpha > tol)),
+        (at_dn & (alpha > tol)) | (at_up & (alpha < -tol)))
+    anye = elig.any(dim=1)
+    infeasible = anyv & ~anye
+
+    # the dual min-ratio test over the eligible columns; the first minimum
+    # wins, which is the dual method's least-index tie-break
+    ht = torch.where(S == DN, h, -h)
+    ratio = torch.where(
+        elig, ht.clamp(min=0.0) / alpha.abs().clamp(min=tol),
+        torch.full_like(ht, _INF))
+    k = ratio.argmin(dim=1)
+
+    p = torch.bmm(invB, Amat[ar, :, k].unsqueeze(-1)).squeeze(-1)
+    numbad = ~(torch.isfinite(w).all(dim=1) & torch.isfinite(qv).all(dim=1)
+               & torch.isfinite(invB).all(dim=(1, 2)))
+    numbad = numbad | (anye & ~torch.isfinite(p).all(dim=1)) | drift
+    do_pivot = anyv & ~numbad & ~infeasible
+
+    i_leave = B[ar, r]
+    B1 = B.clone()
+    B1[ar, r] = torch.where(do_pivot, k, i_leave)
+    y_r = p[ar, r]
+    y_r = torch.where(y_r.abs() > 0, y_r, torch.ones_like(y_r))
+    e_r = (torch.arange(R, device=dev) == r.unsqueeze(1)).to(dtype)
+    invB_piv = invB - ((p - e_r) / y_r.unsqueeze(1)).unsqueeze(2) \
+        * invB[ar, r, :].unsqueeze(1)
+    invB1 = _rows_where(do_pivot, invB_piv, invB)
+    Sl = torch.where(leave_lo, DN, UP).to(S.dtype)
+    S1 = S.clone()
+    S1[ar, i_leave] = torch.where(do_pivot, Sl, S[ar, i_leave])
+    S1[ar, k] = torch.where(do_pivot, torch.full_like(Sl, IN), S1[ar, k])
+    x1 = x2.clone()
+    x1[ar, i_leave] = torch.where(
+        do_pivot, torch.where(leave_lo, d[ar, i_leave], u[ar, i_leave]),
+        x2[ar, i_leave])
+
+    done = numbad | ~anyv | infeasible
+    status = torch.where(numbad, -1, torch.where(~anyv, status_opt, 0))
+    return SimplexState(B1, S1, x1, invB1, it, done, status.to(torch.int32))
+
+
+def dual_simplex_bounded(c, Amat, b, d, u, B0, S0, x0, real, *, tol,
+                         max_iter, pre_done=None):
+    """Bounded-variable DUAL simplex from a dual-feasible basis, on a batch.
+
+    Solves ``min c'x s.t. Ax=b, d<=x<=u`` from a basis whose reduced costs
+    agree in sign with the nonbasic statuses (h >= 0 at DN, h <= 0 at UP),
+    which an optimal basis of the same problem with another right-hand side
+    provides. Each step takes the basic variable that most violates its
+    bounds as the leaving row (the least basic index after Nt steps) and
+    the entering column by the dual min-ratio over the sign-eligible
+    nonbasics; it stops when every basic value is within bounds (optimal;
+    1 or 2 by the multiplicity check) or when the violated row admits no
+    entering column (primal infeasible, 0). Maintained inverse with one
+    Newton refresh per step and a post-refresh drift gate at sqrt(tol), as
+    :func:`bounded_simplex`. An entry gate flags a start whose dual
+    violation exceeds :func:`dual_gate_tol` as -1 at once (callers rescue
+    -1 through the primal path). Returns (status, x, B, S, iters), batched
+    as :func:`bounded_simplex`'s arguments."""
+    Bn, R, Nt = Amat.shape
+    dtype, dev = c.dtype, c.device
+    tol = float(tol)
+    ud = u - d
+    fu = torch.isfinite(u)
+    B = B0.to(torch.int64).clone()
+    A_B0 = torch.gather(Amat, 2, B.unsqueeze(1).expand(Bn, R, R))
+    invB0 = torch.linalg.inv_ex(A_B0)[0]
+    # entry gate: a materially dual-infeasible start would give garbage
+    # verdicts
+    w0 = torch.bmm(invB0.transpose(1, 2),
+                   torch.gather(c, 1, B).unsqueeze(-1)).squeeze(-1)
+    in_b0 = torch.zeros((Bn, Nt), dtype=torch.bool, device=dev)
+    in_b0.scatter_(1, B, True)
+    S = S0.to(torch.int8).clone()
+    dviol = dual_feasibility_violation(c, Amat, w0, S, ~in_b0, real, ud)
+    bad_start = (dviol > dual_gate_tol(c, tol)) \
+        | ~torch.isfinite(invB0).all(dim=(1, 2))
+    pd = (torch.zeros(Bn, dtype=torch.bool, device=dev) if pre_done is None
+          else pre_done.to(torch.bool))
+    st = SimplexState(
+        B, S, x0.to(dtype).clone(), invB0,
+        torch.zeros(Bn, dtype=torch.int32, device=dev), pd | bad_start,
+        torch.where(pd, 1, torch.where(bad_start, -1, 0)).to(torch.int32))
+    step = lambda *a: _dual_step(*a, tol=tol)
+    st = run_chunked(step, (c, Amat, b, d, u, real, ud, fu), st, max_iter)
+    status = torch.where(st.done, st.status,
+                         torch.full_like(st.status, -max_iter))
+    return status.to(torch.int32), st.x, st.B, st.S, st.it

@@ -1,18 +1,20 @@
 """Problem containers, status codes and solver settings (PyTorch).
 
-Counterpart of ``ssqp_tpu/types.py``. Problem form:
+Counterpart of ``ssqp_tpu/types.py``. Problem forms:
 
-    min (1/2) x'Vx + q'x  s.t.  Ax = b (M rows),  Gx <= g (J rows),  d <= x <= u
+    QP: min (1/2) x'Vx + q'x  s.t.  Ax = b (M rows),  Gx <= g (J rows),  d <= x <= u
+    LP: min c'x               s.t.  the same rows and bounds
 
 Status codes are the same integers as the JAX package and the reference
 (IN/DN/UP for variables, OE/EO for inequality rows), as are the
-model-condition (``mc``) codes set by :func:`make_qp`.
+model-condition (``mc``) codes set by :func:`make_qp` and :func:`make_lp`.
 
 Batching: every solver function is batch-first. A batched :class:`QP` carries
 a leading batch axis on the leaves that vary across the batch; leaves shared
 by the whole batch (V, A, G, b, g, d, u on a frontier grid) stay unbatched and
 broadcast. A leaf is batched iff it has one more dimension than its
-single-instance shape (V/A/G: 3 instead of 2; q/b/g/d/u: 2 instead of 1).
+single-instance shape (V/A/G: 3 instead of 2; q/c/b/g/d/u: 2 instead of 1).
+:class:`LP` follows the same convention.
 """
 
 from __future__ import annotations
@@ -170,6 +172,78 @@ class QP:
         return cls(*leaves, int(N), int(M), int(J), int(mc))
 
 
+LP_FIELDS = ("c", "A", "b", "G", "g", "d", "u")
+_LP_NDIM = {"c": 1, "A": 2, "b": 1, "G": 2, "g": 1, "d": 1, "u": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class LP:
+    """Linear program ``min c'x  s.t. Ax=b, Gx<=g, d<=x<=u``.
+
+    Leaves are torch tensors on one device; (N, M, J, mc) are static ints.
+    A leaf is batched iff it has one more dimension than its single-instance
+    shape. Use :func:`make_lp` for validated construction."""
+
+    c: torch.Tensor
+    A: torch.Tensor
+    b: torch.Tensor
+    G: torch.Tensor
+    g: torch.Tensor
+    d: torch.Tensor
+    u: torch.Tensor
+    N: int
+    M: int
+    J: int
+    mc: int = MC_OK
+
+    def leaves(self) -> dict:
+        return {f: getattr(self, f) for f in LP_FIELDS}
+
+    def is_batched(self, field: str) -> bool:
+        return getattr(self, field).dim() == _LP_NDIM[field] + 1
+
+    @property
+    def batch_size(self) -> Optional[int]:
+        """Leading batch size, or None when no leaf is batched."""
+        for f in LP_FIELDS:
+            if self.is_batched(f):
+                return getattr(self, f).shape[0]
+        return None
+
+    @property
+    def device(self) -> torch.device:
+        return self.c.device
+
+    def to(self, device) -> "LP":
+        return dataclasses.replace(
+            self, **{f: t.to(device) for f, t in self.leaves().items()})
+
+    def astype(self, dtype) -> "LP":
+        """The same problem with every leaf cast to ``dtype``."""
+        dtype = as_torch_dtype(dtype)
+        return dataclasses.replace(
+            self, **{f: t.to(dtype) for f, t in self.leaves().items()})
+
+    def take(self, idx: torch.Tensor) -> "LP":
+        """Sub-batch: index the batched leaves, keep shared ones."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f)[idx] for f in LP_FIELDS
+                     if self.is_batched(f)})
+
+    @classmethod
+    def from_numpy(cls, c, A, b, G, g, d, u, N, M, J, mc=MC_OK, *,
+                   device="cuda", dtype=None) -> "LP":
+        """Build an LP from the JAX package's problem fields given as numpy
+        arrays (e.g. ``np.asarray(P.c)``); leaves keep their shapes, so a
+        batched field stays batched. The leaves go to the card unless
+        ``device`` says otherwise."""
+        device = check_device(device)
+        arrs = [np.asarray(a) for a in (c, A, b, G, g, d, u)]
+        dt = as_torch_dtype(arrs[0].dtype if dtype is None else dtype)
+        leaves = [torch.tensor(a, device=device).to(dt) for a in arrs]
+        return cls(*leaves, int(N), int(M), int(J), int(mc))
+
+
 def batch_of(Q: QP) -> int:
     """Batch size of a batched QP; the solver internals take batches only."""
     B = Q.batch_size
@@ -241,6 +315,62 @@ def make_qp(V, q=None, A=None, b=None, *, G=None, g=None, d=None, u=None,
         if w[0] < -1e-9 * max(1.0, abs(w[-1])):
             mc = MC_NOT_PSD
     return QP.from_numpy(V, A, G, q, b, g, d, u, N, M, J, mc, device=device)
+
+
+def _check_dtype_realizable(dtype) -> np.dtype:
+    """The numpy dtype a constructor builds in, or an error. The JAX
+    package warns here when float64 is asked for with x64 off (its arrays
+    would silently be float32 under float64-tier tolerances); torch always
+    has float64, so the trap left is a dtype with no Settings tier at all
+    (float16, bfloat16, integers), which is refused."""
+    if isinstance(dtype, torch.dtype):
+        dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    dtype = np.dtype(dtype)
+    if dtype not in (np.float32, np.float64):
+        raise ValueError(f"dtype {dtype}: the solvers have tolerance tiers "
+                         "for float32 and float64 only")
+    return dtype
+
+
+def make_lp(c, A=None, b=None, *, G=None, g=None, d=None, u=None,
+            dtype=None, device="cuda") -> LP:
+    """Build a validated LP (validation in numpy, as ``ssqp_tpu.make_lp``):
+    no rows by default, bounds ``0 <= x`` unless given, reversed bounds
+    swapped, d == u gives mc=-30 and a problem with neither inequalities nor
+    finite bounds mc=-20. ``dtype`` defaults to float64. The problem is
+    built on the card unless ``device`` says otherwise; without a card the
+    default raises (pass ``device="cpu"``)."""
+    device = check_device(device)
+    npdt = _check_dtype_realizable(np.float64 if dtype is None else dtype)
+    c = np.asarray(c, npdt).reshape(-1)
+    N = c.shape[0]
+    A = np.zeros((0, N), npdt) if A is None else _as2d(A, npdt)
+    b = np.zeros((0,), npdt) if b is None else np.asarray(b, npdt).reshape(-1)
+    G = np.zeros((0, N), npdt) if G is None else _as2d(G, npdt)
+    g = np.zeros((0,), npdt) if g is None else np.asarray(g, npdt).reshape(-1)
+    M, J = b.shape[0], g.shape[0]
+    if A.shape != (M, N):
+        raise ValueError(f"incompatible dimension: A {A.shape} != {(M, N)}")
+    if G.shape != (J, N):
+        raise ValueError(f"incompatible dimension: G {G.shape} != {(J, N)}")
+    d, u, mc = _prep_bounds(d, u, N, npdt)
+    if mc == MC_OK and J == 0 and not (np.isfinite(d).any() or np.isfinite(u).any()):
+        mc = MC_NO_CONSTRAINTS
+    return LP.from_numpy(c, A, b, G, g, d, u, N, M, J, mc, device=device)
+
+
+def qp_from_lp(P: LP) -> QP:
+    """Lift an LP to a QP with ``V = diag(|c| + 0.5)`` (the reference's
+    types.jl:341-356); one LP, not a batch."""
+    V = torch.diag(P.c.abs() + 0.5)
+    return QP(V, P.A, P.G, P.c, P.b, P.g, P.d, P.u, P.N, P.M, P.J, P.mc)
+
+
+def lp_from_qp(Q: QP, c=None) -> LP:
+    """Drop the quadratic term (the reference's types.jl:358-373)."""
+    c = Q.q if c is None else torch.as_tensor(c, dtype=Q.q.dtype,
+                                              device=Q.q.device)
+    return LP(c, Q.A, Q.b, Q.G, Q.g, Q.d, Q.u, Q.N, Q.M, Q.J, Q.mc)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,7 +37,14 @@ Tolerances:
   * the refined tiers (float32 search, float64 data): x within 1e-9 of the
     CPU's and of the plain float64 solve; the LU tier in float64 from one
     searched point: x and lam within 1e-9; the double-double pair as on
-    the CPU (x_hi 1e-12, x_lo 1e-20).
+    the CPU (x_hi 1e-12, x_lo 1e-20);
+  * the Cholesky kernel at the LP path's (B, 25, 1): as above, 1e-4
+    relative to max|X|;
+  * the LP engines and batch protocols on the card against the same call
+    on the CPU: float64 status equal, objective within 1e-9 relative, and
+    for the simplex routes S equal and x within 1e-9 (criss-cross walks
+    depend on the backend's inverse: status and objective only); float32
+    the same statuses, objective within 5e-5 relative.
 """
 
 import dataclasses
@@ -691,3 +698,111 @@ def test_auto_routes_on_card(dev, monkeypatch):
                                waves=waves)
     assert seen == [("solve_qp_batch_waves", "cuda"),
                     ("solve_qp_batch_compact", "cuda")]
+
+
+# ---- the LP engines (config 2's routes at a small size) ---------------------
+
+
+@pytest.mark.parametrize("B", [256, 4096])
+def test_chol_kernel_at_the_lp_shape(dev, B):
+    """The LP dual recovery's systems at config 2 (n = M + J = 25, K = 1):
+    the blocked body pads them to 32 rows."""
+    rng = np.random.default_rng(B)
+    A = torch.tensor(_spd(rng, B, 25), dtype=torch.float32, device=dev)
+    R = torch.tensor(rng.standard_normal((B, 25, 1)), dtype=torch.float32,
+                     device=dev)
+    assert chol.body(25, 1) == "blocked"
+    before = chol.LAUNCHES_BY_SHAPE[(B, 25, 1)]
+    Xk = chol.chol_solve_batch(A, R)
+    assert chol.LAUNCHES_BY_SHAPE[(B, 25, 1)] == before + 1
+    Xp = chol.chol_solve_reference(A, R)
+    torch.cuda.synchronize()
+    assert float((Xk - Xp).abs().max()) <= 1e-4 * float(Xp.abs().max())
+
+
+def _lp_family(route, dtype, N=32, M=4, J=12, B=32, seed=3):
+    """bench_suite.py::config2's generators at N=32, M=4, J=12 (R = 16, so
+    float32 dual recovery takes the Cholesky kernel), on the CPU."""
+    from ssqp_tpu_torch import make_lp
+
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((M, N))
+    G = rng.standard_normal((J, N))
+    X0 = rng.uniform(0.1, 1.0, (B, N))
+    ts = np.linspace(0.0, 1.0, B)[:, None]
+    c0, dc = rng.standard_normal(N), rng.standard_normal(N) * 0.5
+    slack = rng.uniform(0.1, 1.0, J)
+    if route in ("mixed", "cclp"):
+        bat = dict(c=rng.standard_normal((B, N)), b=X0 @ A.T,
+                   g=X0 @ G.T + rng.uniform(0.1, 1.0, (B, J)))
+        shared = ("A", "G", "d", "u")
+    elif route == "cgrid":
+        bat = dict(c=c0 + ts * dc)
+        shared = ("A", "b", "G", "g", "d", "u")
+    else:
+        Xc = X0[0] + ts * (X0[1] - X0[0])
+        bat = dict(b=Xc @ A.T, g=Xc @ G.T + slack)
+        shared = ("c", "A", "G", "d", "u")
+    x0 = X0[0]
+    P = make_lp(c0, A, A @ x0, G=G, g=G @ x0 + slack, d=np.zeros(N),
+                u=np.full(N, 2.0), dtype=np.float64, device="cpu")
+    P = dataclasses.replace(P, **{k: torch.tensor(v) for k, v in bat.items()})
+    return P.astype(dtype), shared
+
+
+def _lp_same(P, rc, rg, dtype, exact):
+    np.testing.assert_array_equal(rg.status, rc.status)
+    c = np.broadcast_to(P.c.double().numpy(), rc.x.shape)
+    fc = (c * rc.x).sum(1)
+    fg = (c * rg.x.astype(np.float64)).sum(1)
+    tol = 1e-9 if dtype == torch.float64 else 5e-5
+    assert (np.abs(fg - fc) <= tol * np.maximum(1.0, np.abs(fc))).all()
+    if dtype == torch.float64 and exact:
+        np.testing.assert_array_equal(rg.S, rc.S)
+        np.testing.assert_allclose(rg.x, rc.x, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("route", ["mixed", "cgrid", "rhs", "cclp"])
+def test_lp_routes_on_card_match_cpu(dev, dtype, route):
+    """Each LP route through its entry point (solve_lp_batch_auto: plain,
+    waves=8, dual waves=8; solve_lp_batch_cclp_rescued) on the card against
+    the same call on the CPU; float32 launches the Cholesky kernel."""
+    P, sh = _lp_family(route, dtype)
+    st = Settings.for_dtype(dtype)
+    fn = ((lambda P: tb.solve_lp_batch_cclp_rescued(P, st, sh))
+          if route == "cclp" else
+          (lambda P: tb.solve_lp_batch_auto(P, st, sh)))
+    rc = fn(P).numpy()
+    before = chol.LAUNCHES
+    rg = fn(P.to(dev)).numpy()
+    if dtype == torch.float32:
+        assert chol.LAUNCHES > before
+    assert np.isin(rc.status, (1, 2)).all()
+    _lp_same(P, rc, rg, dtype, exact=route != "cclp")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lp_single_entry_points_on_card_match_cpu(dev, dtype):
+    """simplex_lp (cold, maximize, warm_from), solve_lp and box_lp on one
+    LP on the card against the CPU."""
+    from ssqp_tpu_torch import box_lp, make_lp, simplex_lp, solve_lp
+
+    P, _ = _lp_family("mixed", dtype, B=2)
+    one = dataclasses.replace(P, c=P.c[0], b=P.b[0], g=P.g[0])
+    calls = (lambda Q: simplex_lp(Q),
+             lambda Q: simplex_lp(Q, minimize=False),
+             lambda Q: simplex_lp(Q, warm_from=simplex_lp(Q)),
+             lambda Q: solve_lp(Q, route="cclp"))
+    for fn in calls:
+        rc, rg = fn(one), fn(one.to(dev))
+        assert int(rg.status) == int(rc.status) and int(rc.status) in (1, 2)
+        fc = float((one.c.double() * rc.x.double()).sum())
+        fg = float((one.c.double() * rg.x.double().cpu()).sum())
+        tol = 1e-9 if dtype == torch.float64 else 5e-5
+        assert abs(fg - fc) <= tol * max(1.0, abs(fc))
+    box = make_lp([1.0, -2.0, 0.0], d=[0.0, 0.0, -1.0], u=[1.0, 3.0, 1.0],
+                  device="cuda")
+    r = box_lp(box)
+    assert r.x.device.type == "cuda" and int(r.status) == 2
+    np.testing.assert_array_equal(r.x.cpu().numpy(), [0.0, 3.0, -1.0])
