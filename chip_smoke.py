@@ -58,10 +58,39 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   launches and the host syncs; every instance status 1/2 or
                   the float64 solve's status, optima feasible, float32
                   within 5e-5 of the port's float64 solve on the card, and
-                  32 instances of that within 1e-7 of scipy's HiGHS.
+                  32 instances of that within 1e-7 of scipy's HiGHS;
+ 11. outer      — the outer layers on bench.py's frontier problem and the
+                  BASELINE configs, float32 unless said: (a) the five
+                  frontier sweeps (batch B=2048, waves=8 B=8192, warm over
+                  128 points, mu B=2048 and mu warm over 128 points, the mu
+                  grids inside the returns the batch sweep reached): every
+                  point solved, ret and risk as x gives them, 1'x = 1 and
+                  r'x = mu within the float32 tolerance 2^-16, 256 points
+                  per sweep (all 128 of a warm one) re-solved in float64 on
+                  the card at the grid's values within 1e-6 objective
+                  gap, QP/s best of 3 fresh grids, ms per point on the warm
+                  sweeps; (b) solve_qp_diff on 256 frontier points in
+                  float64 and float32 with a backward pass of sum(w x) in
+                  q, b and u: the envelope identity (1e-8), central
+                  differences along 4 random directions on 8 instances
+                  (1e-5 relative), an infeasible instance's gradient exactly
+                  0, forward and backward times; (c) config 4 (N=512, M=10,
+                  J=100) through the Model API in float32 and float64,
+                  optimize -> write_mps -> read_mps -> optimize (the same
+                  status, arrays identical, objective within 1e-6 of the
+                  direct solve_qp and of float64; the Cholesky kernel in
+                  float32), config 2's LP through the Model and solve_mps
+                  (OPTIMAL, within 5e-5 of float64, the Cholesky kernel),
+                  kkt_report on config 4 and the batch sweep, trace() around
+                  one batch sweep; (d) a world-size-1 NCCL group:
+                  solve_qp_sharded at B=8192 identical to
+                  solve_qp_batch_auto with 8192 solved, solve_lp_sharded on
+                  config 2's mixed batch at B=256 identical to
+                  solve_lp_batch_auto; (e) warmup(((256, 1, 0),), batch=256).
+                  Every phase-11 QP route launches the CG kernel.
 
-Then one JSON line with the protocol times, the refined phase's numbers and
-the LP routes',
+Then one JSON line with the protocol times, the refined phase's numbers,
+the LP routes' and the outer layers',
 one JSON line with the kernel table (each kernel's launches on each route, for the Cholesky kernel also by (B, n, K) with the body each shape
 takes, its worst error against the plain version, its time, the plain
 version's, the library call's, the bound and ptxas's registers and spills),
@@ -484,18 +513,24 @@ class Spy:
         setattr(self.module, self.name, self.real)
 
 
-def run_route(torch, fn, Qb, B, tag, counters):
-    """One batch through ``fn`` with every kernel count set to 0 just
-    before and read just after; checks the solution."""
+def counted(torch, fn):
+    """(result, launches) of one call with every kernel count set to 0
+    just before and read just after."""
     from ssqp_tpu_torch.ops import cg, chol
 
     torch.cuda.synchronize()
     cg.LAUNCHES = chol.LAUNCHES = 0
     chol.LAUNCHES_BY_SHAPE.clear()
-    res = fn(Qb)
+    out = fn()
     torch.cuda.synchronize()
-    launches = {"cg_rows": cg.LAUNCHES, "chol_solve": chol.LAUNCHES,
-                "chol_by_shape": dict(chol.LAUNCHES_BY_SHAPE)}
+    return out, {"cg_rows": cg.LAUNCHES, "chol_solve": chol.LAUNCHES,
+                 "chol_by_shape": dict(chol.LAUNCHES_BY_SHAPE)}
+
+
+def run_route(torch, fn, Qb, B, tag, counters):
+    """One batch through ``fn`` with every kernel count set to 0 just
+    before and read just after; checks the solution."""
+    res, launches = counted(torch, lambda: fn(Qb))
     if launches["cg_rows"] <= 0:
         raise RuntimeError(f"{tag}: no CG kernel launch")
     counters[tag] = launches
@@ -646,7 +681,6 @@ def phase_refined(torch, card):
     the time of one batched float64 LU factorization of the refined
     system's shape; one double-double continuation at N=32."""
     from ssqp_tpu_torch import Settings
-    from ssqp_tpu_torch.ops import cg, chol
     from ssqp_tpu_torch.parallel.batch import (
         frontier_batch, solve_qp_batch, solve_qp_batch_refined)
     from ssqp_tpu_torch.solvers.refine import solve_qp_refined_dd
@@ -663,11 +697,7 @@ def phase_refined(torch, card):
         fn = lambda: solve_qp_batch_refined(
             Qb, search_dtype=torch.float32, shared=sh, method=method)
         fn()  # warm-up
-        torch.cuda.synchronize()
-        cg.LAUNCHES = chol.LAUNCHES = 0
-        ms, r = timed(torch, fn)
-        counters[method] = {"cg_rows": cg.LAUNCHES,
-                            "chol_solve": chol.LAUNCHES}
+        (ms, r), counters[method] = counted(torch, lambda: timed(torch, fn))
         # the refinement solves the search's labeled active set: it meets
         # the float64 solve's x to 1e-9 where the float32 search labeled as
         # float64 does; where the search's polish pinned a variable within
@@ -764,7 +794,6 @@ def check_ineq(torch, res, Q, B, tag):
 
 def phase_ineq(torch, card):
     from ssqp_tpu_torch import Settings
-    from ssqp_tpu_torch.ops import cg, chol
     from ssqp_tpu_torch.parallel.batch import (
         _tail_resid_bound, batch_kkt_resid, solve_qp_batch,
         solve_qp_batch_auto)
@@ -777,15 +806,10 @@ def phase_ineq(torch, card):
     # float64
     if not (Q.N >= 512 and Q.V.dtype == torch.float32):
         raise RuntimeError("ineq problem is outside the tail route's rule")
-    torch.cuda.synchronize()
-    cg.LAUNCHES = chol.LAUNCHES = 0
-    chol.LAUNCHES_BY_SHAPE.clear()
     t0 = time.perf_counter()
-    res = solve_qp_batch_auto(Q, settings, INEQ_SHARED)
-    torch.cuda.synchronize()
+    res, launches = counted(
+        torch, lambda: solve_qp_batch_auto(Q, settings, INEQ_SHARED))
     wall = time.perf_counter() - t0
-    launches = {"cg_rows": cg.LAUNCHES, "chol_solve": chol.LAUNCHES,
-                "chol_by_shape": dict(chol.LAUNCHES_BY_SHAPE)}
     if min(launches["cg_rows"], launches["chol_solve"]) <= 0:
         raise RuntimeError(f"ineq path missed a kernel: launches {launches}")
     eq, ineq, box = check_ineq(torch, res, Q, B, "ineq")
@@ -1053,7 +1077,6 @@ LP_ROUTES = (("mixed B=256 (plain)", "mixed", B_LP, "solve_lp_batch"),
 def phase_lp(torch, card):
     """BASELINE config 2's LP routes on the card (module docstring)."""
     from ssqp_tpu_torch import Settings
-    from ssqp_tpu_torch.ops import cg, chol
     from ssqp_tpu_torch.parallel import batch
     from ssqp_tpu_torch.parallel.batch import solve_lp_batch
 
@@ -1066,15 +1089,10 @@ def phase_lp(torch, card):
         spies = {n: Spy(batch, n, lambda a, k: True) for n in (
             "solve_lp_batch", "solve_lp_batch_waves",
             "solve_lp_batch_waves_rhs", "solve_lp_batch_cclp")}
-        torch.cuda.synchronize()
-        cg.LAUNCHES = chol.LAUNCHES = 0
-        chol.LAUNCHES_BY_SHAPE.clear()
         t0 = time.perf_counter()
-        res, syncs = count_syncs(torch, lambda: fn(P, s32, sh))
-        torch.cuda.synchronize()
+        (res, syncs), launches = counted(
+            torch, lambda: count_syncs(torch, lambda: fn(P, s32, sh)))
         wall = time.perf_counter() - t0
-        launches = {"cg_rows": cg.LAUNCHES, "chol_solve": chol.LAUNCHES,
-                    "chol_by_shape": dict(chol.LAUNCHES_BY_SHAPE)}
         called = [n for n, sp in spies.items() if sp.calls]
         for sp in spies.values():
             sp.undo()
@@ -1136,6 +1154,551 @@ def phase_lp(torch, card):
     return out, counters
 
 
+# phase 11: the outer layers (frontier sweeps, diff, Model and MPS,
+# diagnostics, the sharded solves, warm-up)
+B_SWEEP, B_WAVES_SWEEP, N_WARM = 2048, 8192, 128
+N_AUDIT = 256
+B_DIFF, N_FD, FD_DIRS, FD_H = 256, 8, 4, 1e-6
+
+
+def frontier_objective(V, rets, x, lam=None):
+    """1/2 x'Vx - lam r'x per row of x, in float64 on the card (lam None:
+    the mu sweeps' objective 1/2 x'Vx)."""
+    x = x.double()
+    f = 0.5 * (x * (x @ V.double().T)).sum(1)
+    return f if lam is None else f - lam.double() * (x @ rets.double())
+
+
+def audit_sweep(torch, tag, fr, V, rets, grid, mu, idx):
+    """Points ``idx`` of a float32 sweep re-solved in float64 on the card at
+    the grid's own values (budget 1, the grid's L or mu); returns the max
+    objective gap."""
+    from ssqp_tpu_torch import Settings
+    from ssqp_tpu_torch.models import frontier as tf
+
+    Q64, _, _ = bench_problem(torch, torch.float64)
+    g64 = grid.double()[idx]
+    lam = None if mu else g64
+    ref = (tf.frontier_mu_sweep if mu else tf.frontier_batch_sweep)(
+        Q64, rets.double(), g64, Settings())
+    if not bool((ref.status > 0).all()):
+        raise RuntimeError(f"{tag}: the float64 audit solve failed")
+    f32 = frontier_objective(V, rets, fr.x[idx], lam)
+    f64 = frontier_objective(V, rets, ref.x, lam)
+    return float(((f32 - f64).abs() / f64.abs().clamp(min=1.0)).max())
+
+
+def phase_outer_sweeps(torch, card):
+    """11a: the five frontier sweeps on bench.py's problem in float32."""
+    from ssqp_tpu_torch import Settings
+    from ssqp_tpu_torch.models import frontier as tf
+    from ssqp_tpu_torch.parallel.batch import (
+        frontier_batch, solve_qp_batch, solve_qp_batch_waves)
+
+    s32 = Settings.for_dtype(torch.float32)
+    Q, _, _ = bench_problem(torch, torch.float32)
+    rets = Q.q
+    V = Q.V
+    dev = "cuda"
+    lgrid = lambda i, B: torch.linspace(0.001 * i, 2.0 + 0.001 * i, B,
+                                        device=dev)
+    out, counters, results = {}, {}, {}
+    ret_span = None
+    sweeps = (("batch", tf.frontier_batch_sweep, B_SWEEP, {}),
+              ("waves=8", tf.frontier_waves_sweep, B_WAVES_SWEEP,
+               dict(waves=8)),
+              ("warm", tf.frontier_warm_sweep, N_WARM, {}),
+              ("mu", tf.frontier_mu_sweep, B_SWEEP, {}),
+              ("mu warm", tf.frontier_mu_warm_sweep, N_WARM, {}))
+    for name, fn, B, kw in sweeps:
+        mu = name.startswith("mu")
+        if mu:  # inside the returns the L-sweep reached
+            lo, hi = ret_span
+            pad = 0.02 * (hi - lo)
+            mgrid = lambda i, B: torch.linspace(lo + pad + 1e-5 * i,
+                                                hi - pad + 1e-5 * i, B,
+                                                device=dev)
+            make = mgrid
+        else:
+            make = lgrid
+        g0 = make(0, B)
+        fr, launches = counted(torch, lambda: fn(Q, rets, g0, s32, **kw))
+        tag = f"sweep {name} N={N_MAIN} B={B}"
+        solved = int((fr.status > 0).sum())
+        if solved != B or launches["cg_rows"] <= 0:
+            raise RuntimeError(f"{tag}: solved {solved}/{B}, launches "
+                               f"{launches}")
+        x = fr.x.double()
+        ret_err = float((fr.ret.double() - x @ rets.double()).abs().max())
+        risk = (x * (x @ V.double().T)).sum(1).clamp(min=0).sqrt()
+        risk_err = float((fr.risk.double() - risk).abs().max())
+        if not (ret_err < 1e-5 and risk_err < 1e-5):
+            raise RuntimeError(f"{tag}: ret/risk disagree with x "
+                               f"({ret_err:.2e}, {risk_err:.2e})")
+        row_err = (float((fr.ret.double() - g0.double()).abs().max())
+                   if mu else None)
+        budget_err = float((x.sum(1) - 1.0).abs().max())
+        if not max(budget_err, row_err or 0.0) < s32.tol:
+            raise RuntimeError(f"{tag}: 1'x - 1 = {budget_err:.2e}, r'x - mu"
+                               f" = {row_err}, tier tolerance {s32.tol:.2e}")
+        if name == "batch":
+            ret_span = (float(fr.ret.min()), float(fr.ret.max()))
+        idx = (torch.arange(B, device=dev) if B <= N_AUDIT else
+               torch.linspace(0, B - 1, N_AUDIT, device=dev).long())
+        gap = audit_sweep(torch, tag, fr, V, rets, g0, mu, idx)
+        if not gap < 1e-6:
+            raise RuntimeError(f"{tag}: objective gap {gap:.3e} >= 1e-6")
+        Qb = (tf._with_mu_row(Q, rets, g0) if mu else
+              tf._with_q(Q, -g0.unsqueeze(1) * rets.unsqueeze(0)))
+        restore_ms = timed(torch, lambda: tf._restore_rows(
+            Qb, fr.x, fr.S, fr.status))[0]
+        # fresh grids; the batch and waves sweeps in turns with the
+        # protocol call they wrap, on the same grid
+        proto = {"batch": lambda Qg, sh: solve_qp_batch(Qg, s32, shared=sh),
+                 "waves=8": lambda Qg, sh: solve_qp_batch_waves(
+                     Qg, s32, sh, waves=8)}.get(name)
+        runs, proto_runs = [], []
+        for i in range(1, 4):
+            gi = make(i, B)
+            ms, r = timed(torch, lambda: fn(Q, rets, gi, s32, **kw))
+            if int((r.status > 0).sum()) != B:
+                raise RuntimeError(f"{tag}: timed grid {i} not all solved")
+            runs.append(ms)
+            if proto is not None:
+                Qg, sh = frontier_batch(Q, gi)
+                proto_runs.append(timed(torch, lambda: proto(Qg, sh))[0])
+        best = min(runs)
+        st = fr.status.float()
+        o = {"B": B, "qp_per_s": B / (best / 1e3), "ms": runs,
+             "cg_launches": launches["cg_rows"], "audited": int(idx.numel()),
+             "max_objgap": gap, "max_ret_err": ret_err,
+             "max_risk_err": risk_err,
+             "s_iters_median": float(st.median()),
+             "s_iters_max": float(st.max())}
+        o["max_budget_err"] = budget_err
+        o["restore_rows_ms"] = restore_ms
+        if mu:
+            o["max_row_err"] = row_err
+        if proto_runs:
+            o["protocol_ms"] = proto_runs
+        if "warm" in name:
+            o["ms_per_point"] = best / B
+        out[name], counters[tag], results[name] = o, launches, (fr, g0)
+        log("outer", f"{tag} f32: solved {solved}/{B}, CG launches "
+            f"{launches['cg_rows']}, S-iterations med {o['s_iters_median']:.0f}"
+            f" max {o['s_iters_max']:.0f}, f64 audit on {o['audited']}: "
+            f"max objgap {gap:.3e}; 1'x - 1 {budget_err:.1e}; ret/risk vs x "
+            f"{ret_err:.1e}/"
+            f"{risk_err:.1e}" + (f", r'x - mu {row_err:.1e}" if mu else "")
+            + f"; best {best:.1f} ms = {o['qp_per_s']:.1f} QP/s, of which "
+            f"the rows' restoration {restore_ms:.2f} ms"
+            + (f" ({o['ms_per_point']:.2f} ms/point)" if "warm" in name
+               else "") + f" (runs {', '.join(f'{m:.1f}' for m in runs)} "
+            f"ms" + (f"; the protocol alone in turns: "
+                     f"{', '.join(f'{m:.1f}' for m in proto_runs)} ms"
+                     if proto_runs else "") + f") on {card}")
+    return out, counters, results
+
+
+def phase_outer_diff(torch, card):
+    """11b: solve_qp_diff on 256 frontier points at N=256, backward of
+    sum(w x) with respect to q, b and u."""
+    from ssqp_tpu_torch.parallel.batch import frontier_batch
+    from ssqp_tpu_torch.solvers.diff import qp_value, solve_qp_diff
+
+    out, counters = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for dtype in (torch.float64, torch.float32):
+        dn = "f64" if dtype == torch.float64 else "f32"
+        Q, _, _ = bench_problem(torch, dtype)
+        Qb, _ = frontier_batch(Q, grid(torch, 0, B_DIFF, dtype))
+        w = torch.randn(B_DIFF, N_MAIN, generator=gen, device="cuda",
+                        dtype=dtype)
+
+        def leaves():
+            return {"q": Qb.q.clone().requires_grad_(True),
+                    "b": Qb.b.expand(B_DIFF, 1).clone().requires_grad_(True),
+                    "u": Qb.u.expand(B_DIFF, N_MAIN).clone()
+                    .requires_grad_(True)}
+
+        lv = leaves()
+        Ql = dataclasses.replace(Qb, **lv)
+        torch.cuda.synchronize()
+        (ms_f, r), launches = counted(torch, lambda: timed(
+            torch, lambda: solve_qp_diff(Ql)))
+        solved = int((r.status > 0).sum())
+        if solved != B_DIFF or launches["cg_rows"] <= 0:
+            raise RuntimeError(f"diff {dn}: solved {solved}, {launches}")
+        ms_b, _ = timed(torch, lambda: (w * r.x).sum().backward())
+        grads = {k: t.grad for k, t in lv.items()}
+        if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+            raise RuntimeError(f"diff {dn}: non-finite gradient")
+        o = {"B": B_DIFF, "forward_ms": ms_f, "backward_ms": ms_b,
+             "cg_launches": launches["cg_rows"]}
+        counters[f"diff {dn} B={B_DIFF}"] = launches
+        if dtype == torch.float64:
+            # the envelope identity: grad_q of the optimal value is x*
+            q = Qb.q.clone().requires_grad_(True)
+            Qv = dataclasses.replace(Qb, q=q)
+            rv = solve_qp_diff(Qv)
+            qp_value(Qv, rv.x).sum().backward()
+            env = float((q.grad - rv.x.detach()).abs().max())
+            if not env < 1e-8:
+                raise RuntimeError(f"diff: envelope error {env:.3e}")
+            # central differences of sum(w x*) over full re-solves along
+            # random directions in (q, b, u) on 8 instances
+            sub = torch.arange(N_FD, device="cuda") * (B_DIFF // N_FD)
+            base = {k: t.detach()[sub] for k, t in lv.items()}
+            Qs = dataclasses.replace(Qb, q=base["q"], b=base["b"],
+                                     u=base["u"])
+            ws = w[sub]
+
+            def loss(step):
+                with torch.no_grad():
+                    rr = solve_qp_diff(dataclasses.replace(
+                        Qs, **{k: base[k] + step[k] for k in base}))
+                if not bool((rr.status > 0).all()):
+                    raise RuntimeError("diff FD: a re-solve failed")
+                return (ws * rr.x).sum(1)
+
+            worst = 0.0
+            for _ in range(FD_DIRS):
+                d = {k: torch.randn(t.shape, generator=gen, device="cuda",
+                                    dtype=dtype) * (t.abs().mean() + 1e-3)
+                     for k, t in base.items()}
+                fd = (loss({k: FD_H * v for k, v in d.items()})
+                      - loss({k: -FD_H * v for k, v in d.items()})) \
+                    / (2 * FD_H)
+                ad = sum((grads[k][sub] * d[k]).sum(1) for k in d)
+                rel = ((fd - ad).abs() / ad.abs().clamp(min=1e-8)).max()
+                worst = max(worst, float(rel))
+            if not worst < 1e-5:
+                raise RuntimeError(f"diff: FD relative error {worst:.3e}")
+            # one infeasible instance: status 0, its gradient exactly zero
+            b8 = torch.ones(N_FD, 1, dtype=dtype, device="cuda")
+            b8[3] = 50.0
+            q8 = Qb.q[sub].clone().requires_grad_(True)
+            b8.requires_grad_(True)
+            r8 = solve_qp_diff(dataclasses.replace(Qb, q=q8, b=b8))
+            (r8.x ** 2).sum().backward()
+            zero_ok = (int(r8.status[3]) == 0
+                       and bool((r8.status[torch.arange(N_FD, device="cuda")
+                                           != 3] > 0).all())
+                       and bool(torch.isfinite(q8.grad).all())
+                       and bool((q8.grad[3] == 0).all())
+                       and bool((b8.grad[3] == 0).all()))
+            if not zero_ok:
+                raise RuntimeError("diff: the failed instance's gradient is "
+                                   "not an exact zero")
+            o.update(envelope_err=env, fd_max_rel=worst,
+                     failed_instance_zero_grad=zero_ok)
+        out[dn] = o
+        log("outer", f"solve_qp_diff N={N_MAIN} B={B_DIFF} {dn}: forward "
+            f"{ms_f:.1f} ms (CG launches {launches['cg_rows']}), backward "
+            f"{ms_b:.1f} ms" + (
+                f"; envelope {o['envelope_err']:.2e} (bar 1e-8), FD over "
+                f"{FD_DIRS} directions on {N_FD} instances "
+                f"{o['fd_max_rel']:.2e} (bar 1e-5), failed instance's "
+                f"gradient exactly 0" if "envelope_err" in o else "")
+            + f" on {card}")
+    return out, counters
+
+
+def config4_model(dtype):
+    """bench_suite.py::config4's problem (seed 4: V, A, b, G, g, d, u and
+    one q) through the Model API on the card; also the raw arrays."""
+    from ssqp_tpu_torch import Model
+
+    N, M, J = N_INEQ, M_INEQ, J_INEQ
+    rng = np.random.default_rng(4)
+    H = rng.standard_normal((N, N))
+    V = H @ H.T / N + 0.5 * np.eye(N)
+    A = rng.standard_normal((M, N))
+    x0 = rng.uniform(0.0, 1.0, N)
+    b = A @ x0
+    G = rng.standard_normal((J, N))
+    g = G @ x0 + rng.uniform(0.1, 1.0, J)
+    q = rng.standard_normal(N)
+    d, u = x0 - 2.0, x0 + 2.0
+    m = Model(dtype=dtype)
+    for i in range(N):
+        m.add_variable(d[i], u[i])
+    for r in range(M):
+        m.add_eq(A[r], b[r])
+    for r in range(J):
+        m.add_le(G[r], g[r])
+    m.set_objective(quad=V, lin=q)
+    return m, dict(V=V, q=q, A=A, b=b, G=G, g=g, d=d, u=u)
+
+
+def config2_model(dtype):
+    """bench_suite.py::config2's first single LP (seed 20) through the
+    Model API on the card."""
+    from ssqp_tpu_torch import Model
+
+    N, M, J = N_LP, M_LP, J_LP
+    f = np.float32
+    rng = np.random.default_rng(20)
+    A = rng.standard_normal((M, N)).astype(f)
+    x0 = rng.uniform(0.1, 1.0, N).astype(f)
+    b = A @ x0
+    G = rng.standard_normal((J, N)).astype(f)
+    g = G @ x0 + rng.uniform(0.1, 1.0, J).astype(f)
+    c = rng.standard_normal(N).astype(f)
+    m = Model(dtype=dtype)
+    m.add_variables(N, lb=0.0, ub=2.0)
+    for r in range(M):
+        m.add_eq(A[r], b[r])
+    for r in range(J):
+        m.add_le(G[r], g[r])
+    m.set_objective(lin=c)
+    return m
+
+
+def same_arrays(torch, P1, P2):
+    return all(torch.equal(a, b) for a, b in zip(P1.leaves().values(),
+                                                P2.leaves().values()))
+
+
+def phase_outer_model(torch, card, sweep_results):
+    """11c: config 4 and config 2 through the Model API and the MPS round
+    trip; kkt_report; trace()."""
+    from ssqp_tpu_torch import Settings, make_qp, solve_qp
+    from ssqp_tpu_torch.parallel.batch import frontier_batch
+    from ssqp_tpu_torch.types import Result
+    from ssqp_tpu_torch.utils.diagnostics import kkt_report, trace
+    from ssqp_tpu_torch.utils.mps import read_mps, solve_mps, write_mps
+
+    out, counters = {}, {}
+    objs = {}
+    for dt in (np.float32, np.float64):
+        dn = "f32" if dt == np.float32 else "f64"
+        t0 = time.perf_counter()
+        m, raw = config4_model(dt)
+        build_s = time.perf_counter() - t0
+        term, launches = counted(torch, lambda: m.optimize())
+        t0 = time.perf_counter()
+        text = write_mps(m)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m2 = read_mps(text, dtype=dt)
+        parse_s = time.perf_counter() - t0
+        term2, launches2 = counted(torch, lambda: m2.optimize())
+        Qd = make_qp(raw["V"], raw["q"], raw["A"], raw["b"], G=raw["G"],
+                     g=raw["g"], d=raw["d"], u=raw["u"], dtype=dt)
+        rd = solve_qp(Qd)
+        fd = float(frontier_objective(Qd.V, None, rd.x[None], None)[0]
+                   + (Qd.q.double() * rd.x.double()).sum())
+        f1, f2 = m.objective_value(), m2.objective_value()
+        rel = abs(f1 - fd) / max(1.0, abs(fd))
+        rel2 = abs(f2 - f1) / max(1.0, abs(f1))
+        identical = same_arrays(torch, m.to_problem(), m2.to_problem())
+        tag = f"model config4 {dn}"
+        if (term != "OPTIMAL" or term2 != term or not rel < 1e-6
+                or not rel2 < 1e-6 or not identical
+                or launches["cg_rows"] <= 0 or launches2["cg_rows"] <= 0):
+            raise RuntimeError(f"{tag}: {term}/{term2}, vs solve_qp {rel:.2e},"
+                               f" round trip {rel2:.2e}, identical "
+                               f"{identical}, launches {launches} "
+                               f"{launches2}")
+        if dt == np.float32 and launches["chol_solve"] <= 0:
+            raise RuntimeError(f"{tag}: no Cholesky kernel launch")
+        rep = kkt_report(Qd, rd)
+        objs[dn] = f1
+        counters[tag] = launches
+        counters[f"mps config4 {dn} (read back)"] = launches2
+        out[tag] = {"termination": term, "objective": f1,
+                    "rel_vs_solve_qp": rel, "rel_round_trip": rel2,
+                    "arrays_identical": identical, "solve_s": m.solve_time,
+                    "solve_s_read_back": m2.solve_time, "build_s": build_s,
+                    "write_mps_s": write_s, "read_mps_s": parse_s,
+                    "mps_bytes": len(text),
+                    "kkt_report": {k: float(v) for k, v in
+                                   rep._asdict().items()}}
+        log("outer", f"{tag}: {term}, objective {f1:.9g}, vs solve_qp "
+            f"{rel:.2e}, after write_mps/read_mps {term2} {rel2:.2e} "
+            f"(arrays identical {identical}); build {build_s:.2f} s, "
+            f"optimize {m.solve_time * 1e3:.1f} ms, write {write_s:.2f} s, "
+            f"parse {parse_s:.2f} s ({len(text)} bytes), launches "
+            f"{launches}; kkt_report {out[tag]['kkt_report']} on {card}")
+    gap = abs(objs["f32"] - objs["f64"]) / max(1.0, abs(objs["f64"]))
+    out["config4 f32 vs f64 objgap"] = gap
+    if not gap < 1e-6:
+        raise RuntimeError(f"model config4: f32 vs f64 gap {gap:.3e}")
+
+    lp = {}
+    for dt in (np.float32, np.float64):
+        m = config2_model(dt)
+        term, launches = counted(torch, lambda: m.optimize())
+        lp[dt] = (m, term, launches)
+    m32, term32, l32 = lp[np.float32]
+    m64, term64, _ = lp[np.float64]
+    text = write_mps(m32)
+    mr, lr = counted(torch, lambda: solve_mps(text, dtype=np.float32))
+    f32, f64, fr = (m32.objective_value(), m64.objective_value(),
+                    mr.objective_value())
+    rel = abs(f32 - f64) / max(1.0, abs(f64))
+    if (term32 != "OPTIMAL" or term64 != "OPTIMAL"
+            or mr.termination_status() != "OPTIMAL" or not rel < 5e-5
+            or not abs(fr - f32) <= 1e-6 * max(1.0, abs(f32))
+            or l32["chol_solve"] <= 0
+            or lr["chol_solve"] <= 0):
+        raise RuntimeError(f"model config2 LP: {term32}/{term64}, f32 vs "
+                           f"f64 {rel:.2e}, solve_mps {fr} vs {f32}, "
+                           f"launches {l32} {lr}")
+    counters["model config2 LP f32"] = l32
+    counters["solve_mps config2 LP f32"] = lr
+    out["model config2 LP f32"] = {"termination": term32, "objective": f32,
+                                   "rel_vs_f64": rel,
+                                   "solve_mps_objective": fr,
+                                   "solve_s": m32.solve_time}
+    log("outer", f"model config2 LP f32: {term32}, objective {f32:.7g}, vs "
+        f"f64 {rel:.2e} (bar 5e-5), solve_mps read-back {fr:.7g}; "
+        f"launches {l32}, solve_mps {lr} on {card}")
+
+    # kkt_report on the batch sweep's results, and a trace of one sweep
+    from ssqp_tpu_torch.models import frontier as tf
+
+    fr_b, g0 = sweep_results["batch"]
+    Q, _, _ = bench_problem(torch, torch.float32)
+    Qb, _ = frontier_batch(Q, g0)
+    rep = kkt_report(Qb, Result(fr_b.x, fr_b.S, fr_b.status), batched=True)
+    out["kkt_report batch sweep (max)"] = {
+        k: float(v.float().max()) for k, v in rep._asdict().items()}
+    log("outer", f"kkt_report over the batch sweep's {B_SWEEP} points (max):"
+        f" {out['kkt_report batch sweep (max)']}")
+    logdir = _build_root() / "traces"
+    before = set(logdir.glob("*.json")) if logdir.exists() else set()
+    s32 = Settings.for_dtype(torch.float32)
+    with trace(str(logdir)):
+        tf.frontier_batch_sweep(Q, Q.q, g0, s32)
+        torch.cuda.synchronize()
+    new = sorted(set(logdir.glob("*.json")) - before)
+    size = new[0].stat().st_size if new else 0
+    if len(new) != 1 or size <= 0:
+        raise RuntimeError(f"trace: wrote {new} ({size} bytes)")
+    events = json.loads(new[0].read_text()).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    out["trace"] = {"bytes": size, "events": len(events),
+                    "kernel_events": kernels}
+    log("outer", f"trace(): {new[0].name}, {size} bytes, {len(events)} "
+        f"events, {kernels} kernel events")
+    return out, counters
+
+
+def _build_root():
+    from ssqp_tpu_torch.ops import _build
+
+    return _build.build_dir()
+
+
+def phase_outer_sharded(torch, card):
+    """11d: a world-size-1 NCCL group (file store under build/): the sharded
+    QP solve of config 5's per-card batch equals solve_qp_batch_auto, and the
+    sharded LP solve of config 2's mixed batch equals solve_lp_batch_auto."""
+    import torch.distributed as dist
+
+    from ssqp_tpu_torch import Settings
+    from ssqp_tpu_torch.parallel.batch import (
+        frontier_batch, solve_lp_batch_auto, solve_qp_batch_auto)
+    from ssqp_tpu_torch.parallel.sharded import (
+        solve_lp_sharded, solve_qp_sharded)
+
+    store = _build_root() / f"nccl_store_{time.time_ns()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    out, counters = {}, {}
+    try:
+        s32 = Settings.for_dtype(torch.float32)
+        Q, _, _ = bench_problem(torch, torch.float32)
+        Qb, sh = frontier_batch(Q, grid(torch, 0, B_BIG))
+        (res, stats), launches = counted(
+            torch, lambda: solve_qp_sharded(Qb, s32, shared=sh))
+        ref = solve_qp_batch_auto(Qb, s32, sh)
+        same = (torch.equal(res.x, ref.x) and torch.equal(res.S, ref.S)
+                and torch.equal(res.status, ref.status))
+        st = {k: int(v) for k, v in stats.items()}
+        if not same or st["solved"] != B_BIG or launches["cg_rows"] <= 0:
+            raise RuntimeError(f"sharded QP: identical {same}, stats {st}, "
+                               f"launches {launches}")
+        # fresh batches built outside the timed calls; the sharded solve
+        # and the protocol alone on the same batch in turns (ABBA), then
+        # the three all-reduces alone
+        ms, ms_auto = [], []
+        for i in range(1, 5):
+            Qg = frontier_batch(Q, grid(torch, i, B_BIG))[0]
+            calls = [(ms, lambda: solve_qp_sharded(Qg, s32, shared=sh)),
+                     (ms_auto, lambda: solve_qp_batch_auto(Qg, s32, sh))]
+            for dst, fn in (calls if i % 2 else calls[::-1]):
+                dst.append(timed(torch, fn)[0])
+        ops = (dist.ReduceOp.SUM, dist.ReduceOp.MAX, dist.ReduceOp.SUM)
+        red = [v.clone() for v in stats.values()]
+        ms_reduce = min(timed(torch, lambda: [
+            dist.all_reduce(t, op=op) for t, op in zip(red, ops)])[0]
+            for _ in range(3))
+        counters[f"sharded QP world=1 B={B_BIG}"] = launches
+        out["qp"] = {"B": B_BIG, "stats": st, "identical": same, "ms": ms,
+                     "auto_ms": ms_auto, "all_reduce_ms": ms_reduce,
+                     "qp_per_s": B_BIG / (min(ms) / 1e3)}
+        P, shp = lp_problem(torch, torch.float32, "mixed", 0, B_LP)
+        (rl, sl), ll = counted(torch, lambda: solve_lp_sharded(P, s32,
+                                                               shared=shp))
+        refl = solve_lp_batch_auto(P, s32, shp)
+        samel = (torch.equal(rl.x, refl.x)
+                 and torch.equal(rl.status, refl.status))
+        stl = {k: int(v) for k, v in sl.items()}
+        if not samel or stl["solved"] != B_LP:
+            raise RuntimeError(f"sharded LP: identical {samel}, stats {stl}")
+        counters[f"sharded LP world=1 B={B_LP}"] = ll
+        out["lp"] = {"B": B_LP, "stats": stl, "identical": samel}
+        log("outer", f"solve_qp_sharded (NCCL, world 1) N={N_MAIN} "
+            f"B={B_BIG}: identical to solve_qp_batch_auto {same}, stats {st},"
+            f" launches {launches}, {', '.join(f'{m:.1f}' for m in ms)} ms "
+            f"(solve_qp_batch_auto in turns: "
+            f"{', '.join(f'{m:.1f}' for m in ms_auto)} ms; the three "
+            f"all-reduces alone {ms_reduce:.3f} ms); "
+            f"solve_lp_sharded config2 mixed B={B_LP}: identical {samel}, "
+            f"stats {stl}, launches {ll} on {card}")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return out, counters
+
+
+def phase_outer_warmup(torch, card):
+    """11e: utils/aot.py::warmup at (256, 1, 0) with batch=256."""
+    from ssqp_tpu_torch.utils.aot import enable_compilation_cache, warmup
+
+    path = enable_compilation_cache()
+    t0 = time.perf_counter()
+    n, launches = counted(torch, lambda: warmup(((256, 1, 0),), batch=256))
+    secs = time.perf_counter() - t0
+    if n != 2 or launches["cg_rows"] <= 0:
+        raise RuntimeError(f"warmup: {n} entry points, launches {launches}")
+    log("outer", f"warmup(((256, 1, 0),), batch=256): {n} entry points in "
+        f"{secs:.2f} s, launches {launches}, kernel cache {path} on {card}")
+    return {"entry_points": n, "seconds": secs}, {
+        "warmup (256, 1, 0) batch=256": launches}
+
+
+def phase_outer(torch, card):
+    """Phase 11: the outer layers on the card (module docstring)."""
+    sweeps, c1, results = phase_outer_sweeps(torch, card)
+    diff, c2 = phase_outer_diff(torch, card)
+    model, c3 = phase_outer_model(torch, card, results)
+    sharded, c4 = phase_outer_sharded(torch, card)
+    warm, c5 = phase_outer_warmup(torch, card)
+    counters = {**c1, **c2, **c3, **c4, **c5}
+    for route, c in counters.items():
+        qp_route = not route.startswith(("model config2", "solve_mps config2",
+                                         "sharded LP"))
+        if qp_route and c["cg_rows"] <= 0:
+            raise RuntimeError(f"outer {route}: no CG kernel launch")
+    return {"sweeps": sweeps, "diff": diff, "model": model,
+            "sharded": sharded, "warmup": warm}, counters
+
+
 def quantiles(a):
     return {k: float(np.quantile(a, p)) for k, p in
             (("q01", 0.01), ("median", 0.5), ("q99", 0.99), ("max", 1.0))}
@@ -1172,15 +1735,18 @@ def main():
     phase_ineq_audit(torch, res_ineq)
     refined, ref_launches = phase_refined(torch, card)
     lp, lp_launches = phase_lp(torch, card)
+    outer, outer_launches = phase_outer(torch, card)
 
     routes = dict(main_launches)
     routes["ineq auto B=256 (plain + tail)"] = ineq_launches
     routes.update({f"refined {m} B={B_REF} N={N_REF}": c
                    for m, c in ref_launches.items()})
     routes.update({f"lp {tag}": c for tag, c in lp_launches.items()})
+    routes.update({f"outer {tag}": c for tag, c in outer_launches.items()})
     paths = {k: {route: c[k] for route, c in routes.items()}
              for k in ("cg_rows", "chol_solve")}
-    print(json.dumps({"protocols": rates, "refined": refined, "lp": lp}))
+    print(json.dumps({"protocols": rates, "refined": refined, "lp": lp,
+                      "outer": outer}))
     head = ktimes[CG_TIMED[0][0]]
     ch = ctimes[CHOL_TIMED[0]]
     ch_b, ch_by = chol_bound(*CHOL_TIMED[0])

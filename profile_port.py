@@ -1,6 +1,6 @@
 """Where the time goes in one batch of the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_port.py [ineq|frontier|waves|compact|lp ...]
+    python3 profile_port.py [ineq|frontier|waves|compact|lp|outer ...]
     python3 profile_port.py protocols [N,B ...]
 
 For each named path (default: frontier and ineq) it builds the problem of
@@ -10,7 +10,9 @@ compaction route; ineq: config 4's widths; lp: BASELINE config 2's four
 LP routes, one trace each: the mixed batch at B=256 through
 solve_lp_batch_auto (plain), the c-grid (waves=8) and the rhs grid (dual
 waves=8) at B=256, and criss-cross at N=40, B=256 through
-solve_lp_batch_cclp_rescued),
+solve_lp_batch_cclp_rescued; outer: the frontier's warm L-sweep and warm
+mu sweep over 128 points (models/frontier.py, float32) and solve_qp_diff
+at B=256 in float64, forward and backward, chip_smoke.py phase 11's),
 runs two warm-up batches, times three unprofiled batches on fresh data with
 CUDA events, then runs one more batch under ``torch.profiler`` and prints
 one JSON line: the unprofiled times, the device time of every CUDA kernel
@@ -33,6 +35,7 @@ N=256, B=4096 and 8192: how many instances each identification round ran
 on (the still-changing ones), one JSON line each.
 """
 
+import dataclasses
 import json
 import re
 import sys
@@ -83,7 +86,44 @@ def paths(torch):
             return lambda: fn(P, s, sh)
         return make
 
+    def warm(mu):
+        from ssqp_tpu_torch.models import frontier as tf
+
+        span = []
+
+        def make(i):
+            if not mu:
+                g = torch.linspace(0.001 * i, 2.0 + 0.001 * i, cs.N_WARM,
+                                   device="cuda")
+                return lambda: tf.frontier_warm_sweep(Qf, Qf.q, g, s32)
+            if not span:  # the returns the batch sweep reaches
+                fr = tf.frontier_batch_sweep(Qf, Qf.q, cs.grid(
+                    torch, 0, cs.B_SWEEP), s32)
+                span.extend((float(fr.ret.min()), float(fr.ret.max())))
+            lo, hi = span
+            pad = 0.02 * (hi - lo)
+            g = torch.linspace(lo + pad + 1e-5 * i, hi - pad + 1e-5 * i,
+                               cs.N_WARM, device="cuda")
+            return lambda: tf.frontier_mu_warm_sweep(Qf, Qf.q, g, s32)
+        return make
+
+    def diff(i):
+        from ssqp_tpu_torch.solvers.diff import solve_qp_diff
+
+        Q64, _, _ = cs.bench_problem(torch, torch.float64)
+        Qb, _ = frontier_batch(Q64, cs.grid(torch, i, cs.B_DIFF,
+                                            torch.float64))
+        q = Qb.q.clone().requires_grad_(True)
+        return lambda: solve_qp_diff(dataclasses.replace(Qb, q=q)).x.sum() \
+            .backward()
+
     return {"lp-mixed": (lp("mixed"), f"config 2 mixed B={cs.B_LP}"),
+            "warm": (warm(False), f"warm L-sweep N={cs.N_MAIN}, "
+                                  f"{cs.N_WARM} points"),
+            "mu-warm": (warm(True), f"warm mu sweep N={cs.N_MAIN}, "
+                                    f"{cs.N_WARM} points"),
+            "diff": (diff, f"solve_qp_diff N={cs.N_MAIN} B={cs.B_DIFF} "
+                           "f64, forward + backward"),
             "lp-cgrid": (lp("cgrid"), f"config 2 c-grid B={cs.B_LP}"),
             "lp-rhs": (lp("rhs"), f"config 2 rhs grid B={cs.B_LP}"),
             "lp-cclp": (lp("cclp"), f"config 2 criss-cross N={cs.N_CC} "
@@ -240,9 +280,12 @@ def main():
             pdas_profile(torch, B)
         return
     wanted = sys.argv[1:] or ["frontier", "ineq"]
-    if "lp" in wanted:
-        i = wanted.index("lp")
-        wanted[i:i + 1] = ["lp-mixed", "lp-cgrid", "lp-rhs", "lp-cclp"]
+    for group, names in (("lp", ["lp-mixed", "lp-cgrid", "lp-rhs",
+                                 "lp-cclp"]),
+                         ("outer", ["warm", "mu-warm", "diff"])):
+        if group in wanted:
+            i = wanted.index(group)
+            wanted[i:i + 1] = names
     table = paths(torch)
     for name in wanted:
         make, label = table[name]

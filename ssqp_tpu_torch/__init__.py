@@ -26,8 +26,17 @@ the closed-form box LP (``box_lp``) and the LP batch protocols that
 ``solve_lp_batch_auto`` routes to: plain (``solve_lp_batch``), the warm
 waves of c-grids (``solve_lp_batch_waves``), the dual-simplex waves of
 rhs grids (``solve_lp_batch_waves_rhs``), and criss-cross
-(``solve_lp_batch_cclp``, ``solve_lp_batch_cclp_rescued``). Problems are
-built on the card unless the caller passes ``device="cpu"``.
+(``solve_lp_batch_cclp``, ``solve_lp_batch_cclp_rescued``). The outer
+layers: the frontier constructors (``qp_frontier_L``, ``qp_frontier_mu``)
+and sweeps (``models/frontier.py``: batch, waves, mu and the two warm
+sweeps), the differentiable solve (``solve_qp_diff``: identification on the
+solver, a differentiable KKT re-solve for autograd), the modelling front end
+(``Model``) with MPS input and output (``read_mps``, ``write_mps``,
+``solve_mps``), the KKT diagnostics and ``torch.profiler`` trace
+(``utils/diagnostics.py``), the kernel build cache and warm-up
+(``utils/aot.py``) and the batches sharded over a ``torch.distributed``
+process group (``parallel/sharded.py``). Problems and models are built on
+the card unless the caller passes ``device="cpu"``.
 """
 
 from ssqp_tpu_torch.types import (
@@ -51,6 +60,8 @@ from ssqp_tpu_torch.types import (
     make_lp,
     make_qp,
     qp_from_lp,
+    qp_frontier_L,
+    qp_frontier_mu,
 )
 
 __all__ = [
@@ -69,6 +80,8 @@ __all__ = [
     "solve_lp_batch", "solve_lp_batch_auto", "solve_lp_batch_waves",
     "solve_lp_batch_waves_rhs", "solve_lp_batch_cclp",
     "solve_lp_batch_cclp_rescued", "stack_lps",
+    "solve_qp_diff", "qp_frontier_L", "qp_frontier_mu", "Model", "read_mps",
+    "solve_mps", "write_mps",
 ]
 
 _BATCH = ("solve_qp_batch", "solve_qp_batch_auto", "frontier_batch",
@@ -103,4 +116,13 @@ def __getattr__(name):  # lazy imports keep the package import light
     if name in _REFINE:
         from ssqp_tpu_torch.solvers import refine
         return getattr(refine, name)
+    if name == "solve_qp_diff":
+        from ssqp_tpu_torch.solvers.diff import solve_qp_diff
+        return solve_qp_diff
+    if name == "Model":
+        from ssqp_tpu_torch.model import Model
+        return Model
+    if name in ("read_mps", "solve_mps", "write_mps"):
+        from ssqp_tpu_torch.utils import mps
+        return getattr(mps, name)
     raise AttributeError(f"module 'ssqp_tpu_torch' has no attribute {name!r}")

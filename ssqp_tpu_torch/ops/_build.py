@@ -2,9 +2,10 @@
 
 The sources under ``ops/csrc/`` are compiled with ``nvcc`` into one shared
 library with a plain C interface, loaded with ``ctypes``. The build happens
-at first use, into ``build/`` at the repository root; the library's file
-name carries a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is loaded as is. ptxas's report of each kernel's
+at first use, into ``build/`` at the repository root (or the directory
+given to :func:`set_build_dir`); the library's file name carries a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one
+is loaded as is. ptxas's report of each kernel's
 registers, shared memory and spills (``-Xptxas -v``) is kept beside the
 library and returned by :func:`ptxas_report`. Nothing here runs at import
 time.
@@ -32,6 +33,21 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _lib = None
 _lib_path = None
+
+
+def set_build_dir(path) -> Path:
+    """Build and cache the kernel library under ``path`` from now on (the
+    default is ``build/`` at the repository root). A library already loaded
+    in this process stays loaded."""
+    global _BUILD
+    with _lock:
+        _BUILD = Path(path).resolve()
+        return _BUILD
+
+
+def build_dir() -> Path:
+    """Where the kernel library is built and cached."""
+    return _BUILD
 
 
 def _nvcc() -> str:

@@ -12,6 +12,7 @@ Every variable gets a negative-part column (a dummy, masked out through
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -131,3 +132,62 @@ def init_qp_traced(Q: QP, settings: Settings, skip=None):
     status = torch.where(lp_status < 0, -1,
                          torch.where(f_art > settings.tol, 0, 1))
     return xo, Sx, Se, status.to(torch.int32)
+
+
+def init_qp(Q: QP, settings: Settings):
+    """Host-convenience Phase-1 (reference initQP, SSQP.jl:461-560) on one
+    QP or a batch: an unbatched QP runs as a batch of one and gets
+    unbatched results back."""
+    if Q.batch_size is not None:
+        return init_qp_traced(Q, settings)
+    Q1 = dataclasses.replace(Q, q=Q.q.unsqueeze(0))
+    return tuple(t[0] for t in init_qp_traced(Q1, settings))
+
+
+@highest_matmul
+def init_ssqp_traced(Q: QP, settings: Settings):
+    """Simpler Phase-1 requiring finite lower bounds (reference initSSQP,
+    SSQP.jl:386-453, used by the EfficientFrontier sister package) on a
+    batched QP: no free-variable split or sign flip, the columns are just
+    [originals | G slacks | +-identity artificials]. Returns (x0 (B, N),
+    Sx (B, N), Se (B, J), status (B,)) with status 1 feasible / 0
+    infeasible / -1 error."""
+    N, M, J = Q.N, Q.M, Q.J
+    Bn = batch_of(Q)
+    dtype = Q.V.dtype
+    dev = Q.device
+    Ms, Ns = M + J, N + J
+    if Ms == 0:  # no rows: the start at the lower bounds is the answer
+        return (Q.d.expand(Bn, N).clone(),
+                torch.full((Bn, N), DN, dtype=torch.int8, device=dev),
+                torch.zeros((Bn, 0), dtype=torch.int8, device=dev),
+                torch.ones(Bn, dtype=torch.int32, device=dev))
+    AG = stack_rows(Q.A, Q.G).expand(Bn, Ms, N)
+    bs = cat_vec(Q.b, Q.g).expand(Bn, Ms).clone()
+    slackA = torch.zeros((Bn, Ms, J), dtype=dtype, device=dev)
+    if J > 0:
+        slackA[:, M:, :] = torch.eye(J, dtype=dtype, device=dev)
+    As = torch.cat([AG, slackA], dim=2)
+    full = lambda n, v: torch.full((Bn, n), v, dtype=dtype, device=dev)
+    ds = torch.cat([Q.d.expand(Bn, N), full(J, 0.0)], dim=1)
+    us = torch.cat([Q.u.expand(Bn, N), full(J, float("inf"))], dim=1)
+
+    q0 = torch.bmm(As, ds.unsqueeze(-1)).squeeze(-1)
+    sigma = torch.where(bs >= q0, 1.0, -1.0).to(dtype)
+    A1 = torch.cat([As, torch.diag_embed(sigma)], dim=2)
+    c1 = torch.cat([full(Ns, 0.0), full(Ms, 1.0)], dim=1)
+    d1 = torch.cat([ds, full(Ms, 0.0)], dim=1)
+    u1 = torch.cat([us, full(Ms, float("inf"))], dim=1)
+    B0 = (Ns + torch.arange(Ms, device=dev)).expand(Bn, Ms).clone()
+    S0 = torch.full((Bn, Ns + Ms), DN, dtype=torch.int8, device=dev)
+    S0[:, Ns:] = IN
+    real = torch.ones((Bn, Ns + Ms), dtype=torch.bool, device=dev)
+
+    lp_status, x1, _, S1, _ = bounded_simplex(
+        c1, A1, bs, d1, u1, B0, S0, d1, real, tol=settings.tol,
+        max_iter=settings.max_iter, rule=settings.rule)
+    f_art = x1[:, Ns:].sum(dim=1)
+    Se = torch.where(S1[:, N:Ns] == IN, OE, EO).to(torch.int8)
+    status = torch.where(lp_status < 0, -1,
+                         torch.where(f_art > settings.tol, 0, 1))
+    return x1[:, :N], S1[:, :N].to(torch.int8), Se, status.to(torch.int32)

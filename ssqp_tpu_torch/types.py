@@ -359,6 +359,25 @@ def make_lp(c, A=None, b=None, *, G=None, g=None, d=None, u=None,
     return LP.from_numpy(c, A, b, G, g, d, u, N, M, J, mc, device=device)
 
 
+def qp_frontier_L(P: QP, L) -> QP:
+    """L-parameterized frontier QP: objective ``1/2 z'Vz - L q'z`` where
+    ``P.q`` holds expected returns (the reference's QP(P::QP, L),
+    types.jl:303-319)."""
+    L = float(L)
+    return dataclasses.replace(P, q=-L * P.q)
+
+
+def qp_frontier_mu(P: QP, mu) -> QP:
+    """mu-parameterized frontier QP: appends the expected-return equality
+    ``q'z = mu`` to Az=b and zeroes the linear term (the reference's
+    QP(mu, P), types.jl:321-339); one QP, not a batch."""
+    A = torch.cat([P.A, P.q.unsqueeze(0)], dim=0)
+    b = torch.cat([P.b, torch.tensor([float(mu)], dtype=P.b.dtype,
+                                     device=P.b.device)])
+    return dataclasses.replace(P, A=A, b=b, q=torch.zeros_like(P.q),
+                               M=P.M + 1)
+
+
 def qp_from_lp(P: LP) -> QP:
     """Lift an LP to a QP with ``V = diag(|c| + 0.5)`` (the reference's
     types.jl:341-356); one LP, not a batch."""

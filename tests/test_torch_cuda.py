@@ -806,3 +806,169 @@ def test_lp_single_entry_points_on_card_match_cpu(dev, dtype):
     r = box_lp(box)
     assert r.x.device.type == "cuda" and int(r.status) == 2
     np.testing.assert_array_equal(r.x.cpu().numpy(), [0.0, 3.0, -1.0])
+
+
+# ---- the outer layers: frontier sweeps, diff, Model/MPS, diagnostics,
+# warm-up and the sharded solves --------------------------------------------
+
+
+@pytest.mark.parametrize("sweep", ["frontier_batch_sweep",
+                                   "frontier_waves_sweep",
+                                   "frontier_warm_sweep",
+                                   "frontier_mu_sweep",
+                                   "frontier_mu_warm_sweep"])
+def test_frontier_sweeps_on_card_match_cpu(dev, sweep):
+    """Each frontier sweep on the card against the same call on the CPU
+    (float64, N=32, 16 grid points): status and S equal, x, ret and risk
+    within 1e-9; every sweep launches the CG kernel."""
+    from ssqp_tpu_torch.models import frontier as tf
+
+    Q, lams = _frontier(torch.float64)
+    rets = Q.q.clone()
+    if "mu" in sweep:  # inside the returns reachable with x <= 4/N
+        r = np.sort(rets.numpy())
+        lo, hi = r[:8].mean(), r[-8:].mean()
+        grid = np.linspace(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo), 16)
+    else:
+        grid = lams
+    fn = getattr(tf, sweep)
+    kw = dict(waves=4) if sweep == "frontier_waves_sweep" else {}
+    fc = fn(Q, rets, torch.tensor(grid), Settings(), **kw)
+    before = cg.LAUNCHES
+    fg = fn(Q.to(dev), rets.to(dev), torch.tensor(grid, device=dev),
+            Settings(), **kw)
+    assert cg.LAUNCHES > before
+    assert (fc.status > 0).all()
+    np.testing.assert_array_equal(fg.status.cpu().numpy(), fc.status.numpy())
+    np.testing.assert_array_equal(fg.S.cpu().numpy(), fc.S.numpy())
+    for k in ("x", "ret", "risk"):
+        np.testing.assert_allclose(getattr(fg, k).cpu().numpy(),
+                                   getattr(fc, k).numpy(), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_diff_gradients_on_card_match_cpu(dev, dtype):
+    """solve_qp_diff on a frontier batch (N=32, B=16, the ineq class's rows
+    cut in: J=2) on the card: x and the gradients of sum(w x) with respect
+    to q, b, u and V against the CPU's (float64 1e-9; float32 1e-4
+    relative to the largest entry)."""
+    from ssqp_tpu_torch.solvers.diff import solve_qp_diff
+
+    Q, lams = _frontier(dtype)
+    Qb, _ = tb.frontier_batch(Q, lams)
+    w = torch.tensor(np.random.default_rng(3).standard_normal((16, 32)),
+                     dtype=dtype)
+
+    def run(device):
+        leaves = {f: getattr(Qb, f).to(device).clone().requires_grad_(True)
+                  for f in ("q", "b", "u", "V")}
+        r = solve_qp_diff(dataclasses.replace(Qb.to(device), **leaves))
+        (w.to(device) * r.x).sum().backward()
+        return r, {f: t.grad.cpu().numpy() for f, t in leaves.items()}
+
+    rc, gc = run("cpu")
+    before = cg.LAUNCHES
+    rg, gg = run(dev)
+    assert cg.LAUNCHES > before
+    assert (rc.status > 0).all()
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    np.testing.assert_allclose(rg.x.detach().cpu().numpy(),
+                               rc.x.detach().numpy(), rtol=0,
+                               atol=tol if dtype == torch.float64 else 1e-5)
+    for f in gc:
+        scale = max(np.abs(gc[f]).max(), 1e-30)
+        assert np.abs(gg[f] - gc[f]).max() <= tol * scale, f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_model_and_mps_on_card_match_cpu(dev, dtype, tmp_path):
+    """The Model on the card (the ineq class at N=32, J=16, R=17 rows:
+    float32 launches the Cholesky kernel; and an LP with R=16): the same
+    status strings and objectives within 1e-9 (float64) or 1e-5 relative
+    (float32) of the CPU's; write_mps gives the same text; solve_mps reads
+    it back on the card."""
+    from ssqp_tpu_torch import Model
+    from ssqp_tpu_torch.utils import mps
+
+    Q = _ineq_class(torch.float64, B=1)
+    Q1 = dataclasses.replace(Q, q=Q.q[0])
+    P, _ = _lp_family("mixed", torch.float64, B=1)
+    P1 = dataclasses.replace(P, c=P.c[0], b=P.b[0], g=P.g[0])
+    for prob in (Q1, P1):
+        mc = Model.from_problem(prob.astype(dtype))
+        mg = Model.from_problem(prob.astype(dtype).to(dev))
+        assert mg.device.type == "cuda"
+        before = chol.LAUNCHES
+        assert mg.optimize() == mc.optimize() == "OPTIMAL"
+        if dtype == torch.float32:
+            assert chol.LAUNCHES > before
+        fc, fg = mc.objective_value(), mg.objective_value()
+        tol = 1e-9 if dtype == torch.float64 else 1e-5
+        assert abs(fg - fc) <= tol * max(1.0, abs(fc))
+        text = mps.write_mps(mg)
+        assert text == mps.write_mps(mc)
+        path = tmp_path / "m.mps.gz"
+        mps.write_mps(mg, path=path)
+        m2 = mps.solve_mps(path, dtype=dtype)
+        assert m2.to_problem().d.device.type == "cuda"
+        assert m2.termination_status() == "OPTIMAL"
+        assert abs(m2.objective_value() - fg) <= tol * max(1.0, abs(fg))
+
+
+def test_kkt_report_and_trace_on_card(dev, tmp_path):
+    from ssqp_tpu_torch.utils.diagnostics import kkt_report, trace
+
+    Q = _ineq_class(torch.float64)
+    sh = ("V", "A", "G", "b", "g", "d", "u")
+    rc = tb.solve_qp_batch(Q, Settings(), shared=sh)
+    Qg = Q.to(dev)
+    with trace(str(tmp_path / "tr")):
+        rg = tb.solve_qp_batch(Qg, Settings(), shared=sh)
+        torch.cuda.synchronize()
+    files = list((tmp_path / "tr").iterdir())
+    assert len(files) == 1 and files[0].stat().st_size > 0
+    repc, repg = kkt_report(Q, rc, batched=True), kkt_report(Qg, rg,
+                                                             batched=True)
+    for a, b in zip(repg, repc):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-9)
+    assert (repg.stationarity < 1e-7).all() and repg.solved.all()
+
+
+def test_warmup_on_card(dev):
+    from ssqp_tpu_torch.ops import _build
+    from ssqp_tpu_torch.utils.aot import enable_compilation_cache, warmup
+
+    assert enable_compilation_cache() == str(_build.build_dir())
+    assert warmup(((16, 1, 0), (16, 1, 2)), batch=4, refined=True) == 6
+
+
+def test_sharded_solves_on_a_one_card_nccl_group(dev, tmp_path):
+    """A world-size-1 NCCL group (file store): the sharded QP and LP solves
+    equal the batch solves they wrap; the statistics are on the card."""
+    import torch.distributed as dist
+
+    from ssqp_tpu_torch.parallel import sharded
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        Q, lams = _frontier(torch.float32, B=64)
+        Qb, sh = tb.frontier_batch(Q.to(dev), lams)
+        st = Settings.for_dtype(torch.float32)
+        res, stats = sharded.solve_qp_sharded(Qb, st, shared=sh)
+        ref = tb.solve_qp_batch_auto(Qb, st, sh)
+        assert torch.equal(res.x, ref.x) and torch.equal(res.S, ref.S)
+        assert stats["solved"].device.type == "cuda"
+        assert int(stats["solved"]) == 64 and int(stats["infeasible"]) == 0
+        P, shp = _lp_family("mixed", torch.float32)
+        Pg = P.to(dev)
+        r, s2 = sharded.solve_lp_sharded(Pg, st, shared=shp)
+        ref = tb.solve_lp_batch_auto(Pg, st, shp)
+        assert torch.equal(r.x, ref.x) and int(s2["solved"]) == 32
+        with pytest.raises(ValueError, match="NCCL"):
+            sharded.solve_qp_sharded(Qb.to("cpu"), st, shared=sh,
+                                     device="cpu")
+    finally:
+        dist.destroy_process_group()

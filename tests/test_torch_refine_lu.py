@@ -137,16 +137,17 @@ def test_refine_result_keeps_a_failed_instance(cls):
 
 @pytest.fixture(scope="module")
 def single(cls):
-    """solve_qp_refined (float32 search on float64 data, the CG tier; the
-    LU tier is held to the JAX package by the batched cases below) and the
-    double-double continuation, which reuses the same compiled JAX search,
-    on the first instance."""
+    """solve_qp_refined (float32 search on float64 data) with the CG and the
+    LU tier, and the double-double continuation, which reuses the CG tier's
+    compiled JAX search, on the first instance."""
     Qjs, Qj, Qt, x_opt, res = cls
     Q0 = Qjs[0]
     out = {}
-    rj = jr.solve_qp_refined(Q0, search_dtype=jnp.float32)
-    rt = tr.solve_qp_refined(port(Q0), search_dtype=torch.float32)
-    out["cg"] = (jax.tree.map(np.asarray, rj), rt.numpy())
+    for method in ("cg", "lu"):
+        rj = jr.solve_qp_refined(Q0, search_dtype=jnp.float32, method=method)
+        rt = tr.solve_qp_refined(port(Q0), search_dtype=torch.float32,
+                                 method=method)
+        out[method] = (jax.tree.map(np.asarray, rj), rt.numpy())
     rj, lj = jr.solve_qp_refined_dd(Q0, search_dtype=jnp.float32)
     rt, lt = tr.solve_qp_refined_dd(port(Q0), search_dtype=torch.float32)
     out["dd"] = (jax.tree.map(np.asarray, rj), np.asarray(lj), rt.numpy(),
@@ -157,6 +158,18 @@ def single(cls):
 def test_solve_qp_refined_matches_jax(cls, single):
     x_opt = cls[3][0]
     rj, rt = single["cg"]
+    assert int(rt.status) == int(rj.status) > 0
+    np.testing.assert_array_equal(rt.S, rj.S)
+    np.testing.assert_allclose(rt.x, rj.x, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rt.x, x_opt, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(rt.lam, rj.lam, rtol=0, atol=1e-9)
+    assert rt.x.dtype == np.float64
+
+
+def test_solve_qp_refined_lu_matches_jax(cls, single):
+    """The single-problem LU tier against the JAX function itself."""
+    x_opt = cls[3][0]
+    rj, rt = single["lu"]
     assert int(rt.status) == int(rj.status) > 0
     np.testing.assert_array_equal(rt.S, rj.S)
     np.testing.assert_allclose(rt.x, rj.x, rtol=0, atol=1e-9)

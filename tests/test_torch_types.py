@@ -99,19 +99,45 @@ def test_from_numpy_and_result_numpy_round_trip():
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """make_qp, QP.from_numpy and Result.from_numpy build on CUDA unless
-    told otherwise; without a card they raise, never fall back."""
+    """make_qp, QP.from_numpy, Result.from_numpy, Model, read_mps,
+    solve_mps, warmup and the sharded solves build on CUDA unless told
+    otherwise; without a card they raise, never fall back."""
+    from ssqp_tpu_torch import Model
+    from ssqp_tpu_torch.parallel import sharded
+    from ssqp_tpu_torch.utils import aot, mps
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     kw = _qp_cases()["general"]
     Qj = jt.make_qp(**kw)
     leaves = [np.asarray(getattr(Qj, f)) for f in FIELDS]
+    Qb = tt.QP.from_numpy(*leaves[:3], leaves[3][None], *leaves[4:],
+                          Qj.N, Qj.M, Qj.J, device="cpu")
+    Pb = tt.make_lp(np.ones(3), G=np.ones((1, 3)), g=[1.0], device="cpu")
+    Pb = tt.LP(Pb.c[None], *(getattr(Pb, f) for f in
+                             ("A", "b", "G", "g", "d", "u")), 3, 0, 1)
+    text = "NAME X\nROWS\n N OBJ\nCOLUMNS\n X1 OBJ 1.0\nENDATA\n"
+    sh = tuple(f for f in FIELDS if f != "q")
     for build in (lambda: tt.make_qp(**kw),
                   lambda: tt.QP.from_numpy(*leaves, Qj.N, Qj.M, Qj.J),
                   lambda: tt.Result.from_numpy(np.zeros(5), np.zeros(7),
-                                               np.int32(1))):
+                                               np.int32(1)),
+                  lambda: Model(),
+                  lambda: mps.read_mps(text),
+                  lambda: mps.solve_mps(text),
+                  lambda: aot.warmup(),
+                  lambda: sharded.solve_qp_sharded(Qb, tt.Settings(),
+                                                   shared=sh),
+                  lambda: sharded.solve_qp_sharded_2d(Qb, tt.Settings(),
+                                                      shared=sh),
+                  lambda: sharded.solve_lp_sharded(
+                      Pb, tt.Settings(), shared=("A", "b", "G", "g", "d",
+                                                 "u")),
+                  lambda: sharded.shard_batch(Qb, shared=sh)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     assert tt.make_qp(**kw, device="cpu").device == torch.device("cpu")
+    assert Model(device="cpu").device == torch.device("cpu")
+    assert mps.read_mps(text, device="cpu").device == torch.device("cpu")
 
 
 def test_result_from_numpy_carries_a_jax_result_across():
