@@ -9,11 +9,15 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   (one nvcc per source, started together);
   3. kernel     — the fused CG kernel against its plain PyTorch version on
                   the card (f32 and f64; shared V at N=256, odd shapes,
-                  per-instance V; f32 at the main paths' four row counts),
+                  per-instance V; the main paths' row counts, config 8's
+                  at N=512 and 1024 and config 7's one-instance launches
+                  at N=14 and N=263, f64 there and at config 8's audit),
                   what a tile's shared exit costs at the ineq shape, and
                   the kernel's, the plain version's and one float32
-                  matmul's times at the three timed shapes with the FFMA-
-                  and 3xTF32-route bounds;
+                  matmul's times at the five timed shapes (config 8's at
+                  N=1024 among them) with the FFMA- and 3xTF32-route
+                  bounds, and the float64 body's at N=1024 with the DMMA
+                  bound (the card's higher float64 rate; DFMA beside it);
   4. chol       — the batched Cholesky kernel against its plain version on
                   the card (f32, at the ineq path's and the LP path's
                   shapes, the blocked body's panel edges, the direct N x N
@@ -87,10 +91,41 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   solve_qp_batch_auto with 8192 solved, solve_lp_sharded on
                   config 2's mixed batch at B=256 identical to
                   solve_lp_batch_auto; (e) warmup(((256, 1, 0),), batch=256).
-                  Every phase-11 QP route launches the CG kernel.
+                  Every phase-11 QP route launches the CG kernel;
+ 12. pdas       — the PDAS rounds' variants (Settings.pdas_pcg, the W-PCG,
+                  and Settings.pdas_cheb, the Chebyshev semi-iteration)
+                  against the default rounds on the frontier at N=256,
+                  B=2048, float32, through solve_qp_batch_auto (plain):
+                  shared_jacobi_bounds with and without W around the
+                  Jacobi-scaled spectrum (float64 eigvalsh on the card);
+                  per flag all solved, the PDAS rounds and their widths,
+                  the inner solve's iterations per round, CG launches by
+                  body, aten ops and host syncs, S against the default's
+                  (where it differs, within 1e-6 objective gap of the
+                  float64 solve), QP/s best of 3 fresh grids in turns;
+ 13. config7    — bench_suite.py::config7 on the port's ungil_like (N=14,
+                  M=2, J=2, shortable) and sp500_like (N=263, condition
+                  ~1e6-1e8) from ssqp_tpu_torch/utils/problems.py: the
+                  coarse warm L-sweep (64 points), the coarse warm mu sweep
+                  and its segments, the fine warm mu sweep (16 points per
+                  segment, subsampled or padded to 256), the fine warm L
+                  sweep (256 geometric points), each timed once with every
+                  point solved, S-iterations and CG launches; 96 points of
+                  the fine mu sweep refined in float64 (refine_result, LU)
+                  and audited against the port's float64 solve on the card:
+                  objective gap and ||x - z||_inf quantiles, refined max gap
+                  < 1e-6;
+ 14. config8    — bench_suite.py::config8's frontier at N=512 and N=1024,
+                  B=8192, float32, through solve_qp_batch_auto (waves=8
+                  and the N >= 512 tail): all solved, the tail's passes,
+                  times and accepted corrections, CG launches by body, QP/s
+                  best of 3 fresh grids, 256 instances audited against
+                  float64 on the card (max gap < 1e-6 after the tail; the
+                  gap before it printed), and the CG kernel's time and
+                  bounds at N=1024 from phase 3.
 
 Then one JSON line with the protocol times, the refined phase's numbers,
-the LP routes' and the outer layers',
+the LP routes', the outer layers' and phases 12-14's,
 one JSON line with the kernel table (each kernel's launches on each route, for the Cholesky kernel also by (B, n, K) with the body each shape
 takes, its worst error against the plain version, its time, the plain
 version's, the library call's, the bound and ptxas's registers and spills),
@@ -130,8 +165,13 @@ FEAS_TOL = 1e-4  # ineq primal feasibility, scaled by 1 + |b|, |g|, |d|, |u|
 # bandwidth. The card's power limit is printed beside.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12  # dense, tensor cores
+PEAK_F64_FLOPS = 34e12  # outside the tensor cores (the CG kernel's DFMA)
+PEAK_F64_TC_FLOPS = 67e12  # on the tensor cores (DMMA, as cuBLAS's DGEMM)
 PEAK_BYTES = 3.35e12
 SPIN_CYCLES = 10_000_000  # cuda_time's lead: ~5 ms at the H100's clocks
+# bench_suite.py::config8: the frontier at N=512 and 1024, B=8192, and the
+# float64 audit's instances
+C8_N, C8_B, C8_AUDIT = (512, 1024), 8192, 256
 
 
 def log(phase, msg):
@@ -190,7 +230,16 @@ def cuda_time(torch, fn, reps=5):
 # instances x 111 columns at the tail sweep's 96 steps.
 CG_TIMED = (("frontier C=4096", 2 * B_AUTO, N_MAIN, 64),
             ("frontier C=16384", 2 * B_BIG, N_MAIN, 64),
-            ("ineq C=28416", B_INEQ * (1 + M_INEQ + J_INEQ), N_INEQ, 96))
+            ("ineq C=28416", B_INEQ * (1 + M_INEQ + J_INEQ), N_INEQ, 96),
+            # config 8 at the tensor-core body's edge: the batch's rows and
+            # a tail pass's (B/4 instances, the correction's 96 steps)
+            ("config8 C=16384", 2 * C8_B, 1024, 64),
+            ("config8 tail C=4096", 2 * C8_B // 4, 1024, 96))
+# The float64 body at N=1024: the float64 audit's rows and the tail pass's
+# rows (on the card the tail corrects in float32; float64 data on a CPU
+# tensor would correct at this shape in float64)
+CG_TIMED_F64 = (("config8 audit C=512 f64", 2 * C8_AUDIT, 1024, 64),
+                ("config8 tail shape C=4096 f64", 2 * C8_B // 4, 1024, 64))
 
 
 def phase_kernel(torch):
@@ -209,9 +258,22 @@ def phase_kernel(torch):
     main_rows = [("N=256 K=2 batch=8192 shared V", N_MAIN, 2, B_BIG, False,
                   200)] + [
         (f"N={N_INEQ} K={K_INEQ} batch={b} shared V", N_INEQ, K_INEQ, b,
-         False, 96) for b in (B_INEQ // 4, B_INEQ)]
+         False, 96) for b in (B_INEQ // 4, B_INEQ)] + [
+        # config 8 (phase 14): the batch at N=512 and 1024 and a tail pass
+        (f"N={n} K=2 batch={C8_B} shared V", n, 2, C8_B, False, 64)
+        for n in C8_N] + [
+        (f"N=1024 K=2 batch={C8_B // 4} shared V", 1024, 2, C8_B // 4,
+         False, 96)]
+    # config 7 (phase 13): one instance's rows, 1+R = 6 at ungil's N=14 and
+    # 3 at sp500's N=263 (the tensor-core body's 8-wide tile, ragged k-tail)
+    c7_rows = [("N=14 K=6 batch=1 shared V", 14, 6, 1, False, 200),
+               ("N=263 K=3 batch=1 shared V", 263, 3, 1, False, 200)]
+    main_rows += c7_rows
+    # config 8's float64 audit at N=1024, and config 7's float64 references
+    f64_rows = [(f"N=1024 K=2 batch={C8_AUDIT} shared V", 1024, 2, C8_AUDIT,
+                 False, 64)] + c7_rows
     for dtype, tol, extra in ((torch.float32, F32_TOL, main_rows),
-                              (torch.float64, F64_TOL, [])):
+                              (torch.float64, F64_TOL, f64_rows)):
         for name, N, K, batch, per, iters in cases + extra:
             V, FM, B, DINV, TOL2, X0 = cg_problem(torch, rng, N, K, batch,
                                                   dtype, per)
@@ -270,6 +332,30 @@ def phase_kernel(torch):
             f"({100 * b_ffma / t['ms']:.1f}%), bound 3xTF32 {b_tc:.3f} ms "
             f"({100 * b_tc / t['ms']:.1f}%) (runs {tk1:.3f}/{tk2:.3f}, "
             f"{tp1:.3f}/{tp2:.3f}, {tg1:.4f}/{tg2:.4f})")
+    for label, C, N, steps in CG_TIMED_F64:
+        V, FM, B, DINV, TOL2, X0 = cg_problem(torch, rng, N, 1, C,
+                                              torch.float64)
+        TOL2 = torch.zeros_like(TOL2)
+        Br, X0r, fmr, dinvr, tol2r = cg._rows(B, FM, DINV, TOL2, X0)
+        kern = lambda: cg.cg_padded_rows(V, fmr, dinvr, Br, tol2r, steps,
+                                         X0r)
+        plain = lambda: cg.cg_rows_reference(V, fmr, dinvr, Br, tol2r, steps,
+                                             X0r)
+        tk1, tp1 = cuda_time(torch, kern), cuda_time(torch, plain)
+        tp2, tk2 = cuda_time(torch, plain), cuda_time(torch, kern)
+        b, by = cg_bound(C, N, steps, torch.float64)
+        b_dfma, by_dfma = cg_bound(C, N, steps, torch.float64,
+                                   PEAK_F64_FLOPS)
+        t = {"ms": min(tk1, tk2), "plain_ms": min(tp1, tp2), "bound_ms": b,
+             "bound_by": by, "bound_dfma_ms": b_dfma,
+             "bound_dfma_by": by_dfma, "dtype": "f64"}
+        times[label] = t
+        log("kernel", f"f64 {label} N={N} {steps} cold steps ("
+            f"{cg.body(C, N, torch.float64, True)} body): kernel "
+            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound DMMA "
+            f"{b:.3f} ms ({100 * b / t['ms']:.1f}%), bound DFMA {b_dfma:.3f} "
+            f"ms ({100 * b_dfma / t['ms']:.1f}%) (runs {tk1:.3f}/"
+            f"{tk2:.3f}, {tp1:.3f}/{tp2:.3f})")
     return worst, times, exits
 
 
@@ -340,21 +426,27 @@ def ptxas_summary(text):
     return rows
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
     """(least time in ms, what bounds it) against the card's published
-    float32 and memory peaks."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    float32 (or ``peak``) and memory peaks."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def cg_bound(C, N, iters):
+def cg_bound(C, N, iters, dtype=None, peak=None):
     """One fused CG solve of C rows for ``iters`` steps (every row runs all
     of them here): per row and step the V matvec (2 N^2) and the vector
     updates and sums (~14 N); V, fm, dinv, B, X0 and tol2 read once, X and
-    rr written once, float32."""
+    rr written once; float32, or float64 (8-byte words) when ``dtype`` is
+    float64, at ``peak`` (by default the card's float32 rate outside the
+    tensor cores, and for float64 its tensor-core DMMA rate, the higher of
+    the card's two float64 rates)."""
+    f64 = dtype is not None and dtype.itemsize == 8
+    if peak is None:
+        peak = PEAK_F64_TC_FLOPS if f64 else PEAK_F32_FLOPS
     return bound(iters * C * (2 * N * N + 14 * N),
-                 4 * (N * N + 5 * C * N + 2 * C))
+                 (8 if f64 else 4) * (N * N + 5 * C * N + 2 * C), peak)
 
 
 def cg_bound_3xtf32(C, N, iters):
@@ -495,18 +587,21 @@ def check_solution(torch, res, Qb, B, tag):
 
 
 class Spy:
-    """Records the calls of ``module.name`` (its keyword arguments) while
-    the wrapped function runs as before; ``undo`` restores it."""
+    """Records the calls of ``module.name`` (``record(args, kwargs)``, by
+    default the keyword arguments) while the wrapped function runs as
+    before, or through ``run(real, args, kwargs)`` where that is given (to
+    time or keep its result); ``undo`` restores it."""
 
-    def __init__(self, module, name, record=None):
+    def __init__(self, module, name, record=None, run=None):
         self.module, self.name = module, name
         self.real = getattr(module, name)
         self.calls = []
         record = record or (lambda a, k: k)
+        run = run or (lambda real, a, k: real(*a, **k))
 
         def wrapped(*a, **k):
             self.calls.append(record(a, k))
-            return self.real(*a, **k)
+            return run(self.real, a, k)
         setattr(module, name, wrapped)
 
     def undo(self):
@@ -520,10 +615,13 @@ def counted(torch, fn):
 
     torch.cuda.synchronize()
     cg.LAUNCHES = chol.LAUNCHES = 0
+    cg.LAUNCHES_BY_BODY.clear()
     chol.LAUNCHES_BY_SHAPE.clear()
     out = fn()
     torch.cuda.synchronize()
-    return out, {"cg_rows": cg.LAUNCHES, "chol_solve": chol.LAUNCHES,
+    return out, {"cg_rows": cg.LAUNCHES,
+                 "cg_by_body": dict(cg.LAUNCHES_BY_BODY),
+                 "chol_solve": chol.LAUNCHES,
                  "chol_by_shape": dict(chol.LAUNCHES_BY_SHAPE)}
 
 
@@ -1699,6 +1797,375 @@ def phase_outer(torch, card):
             "sharded": sharded, "warmup": warm}, counters
 
 
+# ---- phase 12: the PDAS variants --------------------------------------
+
+PDAS_FLAGS = ("default", "pdas_pcg", "pdas_cheb")
+
+
+def op_counts(torch, fn):
+    """(result, aten ops, host syncs) of one call: the aten operators that
+    torch.profiler records on the host, and the synchronizing CUDA calls
+    that torch's sync debug mode reports."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out, syncs = count_syncs(torch, fn)
+    aten = sum(e.name.startswith("aten::") for e in prof.events())
+    return out, aten, syncs
+
+
+def phase_pdas(torch, card):
+    """Phase 12: the frontier (N=256, B=2048, float32) through
+    solve_qp_batch_auto (its plain route) with the default PDAS rounds, the
+    W-PCG rounds and the Chebyshev rounds; the Chebyshev interval against
+    the spectrum on the card."""
+    from ssqp_tpu_torch import Settings
+    from ssqp_tpu_torch.ops import kkt
+    from ssqp_tpu_torch.ops.kkt import shared_jacobi_bounds
+    from ssqp_tpu_torch.parallel.batch import (
+        frontier_batch, solve_qp_batch, solve_qp_batch_auto)
+    from ssqp_tpu_torch.solvers import ssqp
+
+    s32 = Settings.for_dtype(torch.float32)
+    flags = {f: s32 if f == "default" else dataclasses.replace(s32,
+                                                               **{f: True})
+             for f in PDAS_FLAGS}
+    Q, V, mu = bench_problem(torch, torch.float32)
+    out, counters = {"bounds": {}}, {}
+
+    W, _ = ssqp._pdas_shared_W(Q.V, s32)
+    s = torch.diagonal(Q.V).double().rsqrt()
+    ev = torch.linalg.eigvalsh(s[:, None] * Q.V.double() * s[None, :])
+    ev_lo, ev_hi = float(ev.min()), float(ev.max())
+    for tag, Wb in (("with W", W), ("without W", None)):
+        lo, hi = (float(t) for t in shared_jacobi_bounds(Q.V, Wb))
+        out["bounds"][tag] = {"lo": lo, "hi": hi}
+        log("pdas", f"shared_jacobi_bounds {tag}, N={N_MAIN} f32 on the "
+            f"card: [{lo:.6g}, {hi:.6g}] around the Jacobi-scaled spectrum "
+            f"[{ev_lo:.6g}, {ev_hi:.6g}] (float64 eigvalsh)")
+        if not (lo <= ev_lo and hi >= ev_hi):
+            raise RuntimeError(f"pdas: the interval {tag} misses the "
+                               "spectrum")
+    out["bounds"]["spectrum"] = {"lo": ev_lo, "hi": ev_hi}
+
+    Qb, sh = frontier_batch(Q, grid(torch, 0, B_AUTO))
+    lams = grid(torch, 0, B_AUTO).double()
+    results = {}
+    for name, st in flags.items():
+        rounds = Spy(ssqp, "_pdas_round", lambda a, k: int(a[2].shape[0]))
+        # each Chebyshev or PCG iteration (ops/kkt.py _vp_cheb, _vp_pcg)
+        # applies the padded operator once (_vp_apply), the starting
+        # residual once more
+        applies, per_call = Spy(kkt, "_vp_apply", lambda a, k: None), []
+
+        def inner(real, a, k, per_call=per_call):
+            n0 = len(applies.calls)
+            out = real(*a, **k)
+            per_call.append(len(applies.calls) - n0 - 1)
+            return out
+
+        spies = [rounds, applies] + [Spy(kkt, n, run=inner)
+                                     for n in ("_vp_cheb", "_vp_pcg")]
+        try:
+            res, launches = counted(
+                torch, lambda: solve_qp_batch_auto(Qb, st, sh))
+        finally:
+            for spy in reversed(spies):
+                spy.undo()
+        tag = f"pdas {name} N={N_MAIN} B={B_AUTO}"
+        check_solution(torch, res, Qb, B_AUTO, tag)
+        if launches["cg_rows"] <= 0 or bool(per_call) != (
+                name != "default"):
+            raise RuntimeError(f"{tag}: CG launches {launches}, inner "
+                               f"solves {per_call}")
+        _, aten, syncs = op_counts(torch,
+                                   lambda: solve_qp_batch_auto(Qb, st, sh))
+        results[name], counters[tag] = res, launches
+        st_f = res.status.float()
+        out[name] = {"pdas_rounds": len(rounds.calls),
+                     "round_widths": rounds.calls,
+                     "inner_iters_per_round": per_call,
+                     "cg_launches": launches["cg_rows"],
+                     "aten_ops": aten, "host_syncs": syncs,
+                     "s_iters_median": float(st_f.median()),
+                     "s_iters_max": float(st_f.max())}
+        log("pdas", f"{tag} f32: solved {B_AUTO}/{B_AUTO}; PDAS rounds "
+            f"{len(rounds.calls)} on {rounds.calls} instances; "
+            + (f"{name[5:]} iterations per round {per_call}; "
+               if per_call else "")
+            + f"CG kernel launches {launches['cg_rows']} "
+            f"{launches['cg_by_body']}; aten ops {aten}, host syncs {syncs};"
+            f" S-iterations med {float(st_f.median()):.0f} max "
+            f"{float(st_f.max()):.0f}")
+
+    Q64, _, _ = bench_problem(torch, torch.float64)
+    S0 = results["default"].S
+    for name in PDAS_FLAGS[1:]:
+        diff = (results[name].S != S0).any(1).nonzero().squeeze(1)
+        gap = 0.0
+        if diff.numel():
+            Qd, shd = frontier_batch(Q64, lams[diff])
+            r64 = solve_qp_batch(Qd, Settings(), shared=shd)
+            if not bool((r64.status > 0).all()):
+                raise RuntimeError(f"pdas {name}: the float64 solve failed")
+            gap = float(objgap(Qd, results[name].x[diff], r64.x).max())
+        out[name]["S_differs"] = int(diff.numel())
+        out[name]["max_objgap_where_S_differs"] = gap
+        log("pdas", f"{name}: S differs from the default's on "
+            f"{diff.numel()}/{B_AUTO} instances; there max objective gap "
+            f"to float64 {gap:.3e} (bar 1e-6)")
+        if not gap < 1e-6:
+            raise RuntimeError(f"pdas {name}: gap {gap:.3e} where S "
+                               "differs")
+
+    runs = {k: [] for k in flags}
+    for rep in range(1, 4):  # fresh grids, the three flags in turn
+        Qg, shg = frontier_batch(Q, grid(torch, rep, B_AUTO))
+        for name, st in flags.items():
+            ms, r = timed(torch, lambda: solve_qp_batch_auto(Qg, st, shg))
+            check_solution(torch, r, Qg, B_AUTO, f"timed pdas {name}")
+            runs[name].append(ms)
+    for name, ms in runs.items():
+        best = min(ms)
+        out[name].update(ms=ms, qp_per_s=B_AUTO / (best / 1e3))
+        log("pdas", f"{name} N={N_MAIN} B={B_AUTO} f32: best {best:.1f} ms"
+            f" = {B_AUTO / (best / 1e3):.1f} QP/s (runs "
+            f"{', '.join(f'{m:.1f}' for m in ms)} ms) on {card}")
+    return out, counters
+
+
+# ---- phase 13: bench_suite.py::config7 --------------------------------
+
+C7_PTS, C7_FINE, C7_COARSE, C7_AUDIT = 16, 256, 64, 96
+
+
+def config7_datasets():
+    """bench_suite.py::config7's two datasets from the port's problem
+    library: (name, E, V, constraint arrays, L range)."""
+    from ssqp_tpu_torch.utils.problems import sp500_like, ungil_like
+
+    E1, V1, A1, b1, G1, g1, d1, u1 = ungil_like()
+    E2, V2, u2 = sp500_like()
+    return (("ungil_n14", E1, V1, dict(A=A1, b=b1, G=G1, g=g1, d=d1, u=u1),
+             (1e-3, 50.0)),
+            ("sp500_n263", E2, V2, dict(u=u2), (1e-3, 3.0)))
+
+
+def fine_mu_grid(S, mus_c):
+    """config7's fine grid: 16 points per segment of the coarse mu sweep
+    (a segment ends where the active set changes), subsampled or padded to
+    C7_FINE points. Returns (grid, segments, points before the cut)."""
+    brk = np.nonzero(np.any(S[1:] != S[:-1], axis=1))[0]
+    edges = np.unique(np.concatenate([[0], brk + 1, [len(mus_c) - 1]]))
+    n_seg = len(edges) - 1
+    fine = np.concatenate([
+        np.linspace(mus_c[edges[k]], mus_c[edges[k + 1]], C7_PTS,
+                    endpoint=False) for k in range(n_seg)]
+        + [[mus_c[edges[-1]]]])
+    n_true = len(fine)
+    if n_true > C7_FINE:
+        fine = fine[np.linspace(0, n_true - 1, C7_FINE).astype(int)]
+    else:
+        fine = np.concatenate([fine, np.full(C7_FINE - n_true, fine[-1])])
+    return fine, n_seg, n_true
+
+
+def phase_config7(torch, card):
+    """Phase 13: bench_suite.py::config7 on the card (module docstring)."""
+    from ssqp_tpu_torch import Result, Settings, make_qp
+    from ssqp_tpu_torch.models import frontier as tf
+    from ssqp_tpu_torch.solvers.refine import refine_result
+
+    s32, s64 = Settings.for_dtype(torch.float32), Settings()
+    out, counters = {}, {}
+    for name, E, V, kw, (lam_lo, lam_hi) in config7_datasets():
+        N = len(E)
+        f32 = lambda a: np.asarray(a, np.float32)
+        Q32 = make_qp(f32(V), np.zeros(N, np.float32), dtype=np.float32,
+                      device="cuda", **{k: f32(v) for k, v in kw.items()})
+        Q64 = make_qp(V, np.zeros(N), device="cuda", **kw)
+        rets = torch.tensor(E, dtype=torch.float32, device="cuda")
+        t32 = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+        geo = lambda n: np.concatenate([[0.0], np.geomspace(lam_lo, lam_hi,
+                                                            n - 1)])
+        o = {"N": N}
+
+        def sweep(tag, fn, grid_):
+            (ms, fr), launches = counted(torch, lambda: timed(
+                torch, lambda: fn(Q32, rets, t32(grid_), s32)))
+            n = len(grid_)
+            solved = int((fr.status > 0).sum())
+            st = fr.status.float()
+            o[tag] = {"points": n, "solved": solved, "ms": ms,
+                      "ms_per_point": ms / n,
+                      "s_iters": int(fr.status.clamp(min=0).sum()),
+                      "s_iters_median": float(st.median()),
+                      "s_iters_max": float(st.max()),
+                      "cg_launches": launches["cg_rows"]}
+            counters[f"config7 {name} {tag}"] = launches
+            log("config7", f"{name} {tag}: solved {solved}/{n}, {ms:.1f} ms"
+                f" ({ms / n:.2f} ms/point), S-iterations "
+                f"{o[tag]['s_iters']} (med {float(st.median()):.0f}, max "
+                f"{float(st.max()):.0f}), CG launches "
+                f"{launches['cg_rows']} on {card}")
+            if solved != n or launches["cg_rows"] <= 0:
+                raise RuntimeError(f"config7 {name} {tag}: solved "
+                                   f"{solved}/{n}, launches {launches}")
+            return fr
+
+        fl = sweep("coarse L warm", tf.frontier_warm_sweep, geo(C7_COARSE))
+        ret_c = fl.ret.double().cpu().numpy()
+        rmin, rmax = float(ret_c.min()), float(ret_c.max())
+        span = rmax - rmin
+        mus_c = np.linspace(rmin + 0.01 * span, rmax - 0.01 * span,
+                            C7_COARSE)
+        fmc = sweep("coarse mu warm", tf.frontier_mu_warm_sweep, mus_c)
+        fine, n_seg, n_true = fine_mu_grid(fmc.S.cpu().numpy(), mus_c)
+        o.update(segments=n_seg, fine_points=n_true)
+        log("config7", f"{name}: {n_seg} segments x {C7_PTS} = {n_true} "
+            f"points, " + (f"subsampled to {C7_FINE}" if n_true > C7_FINE
+                           else f"padded to {C7_FINE}"))
+        fm = sweep("fine mu warm", tf.frontier_mu_warm_sweep, fine)
+        sweep("fine L warm", tf.frontier_warm_sweep, geo(C7_FINE))
+
+        # the audit: C7_AUDIT points of the fine mu grid, the float32 sweep
+        # and its float64 refinement on its labels (solvers/refine.py,
+        # LU) against the port's float64 solve on the card
+        idx = np.linspace(0, C7_FINE - 1, C7_AUDIT).astype(int)
+        rets64 = torch.tensor(E, device="cuda")
+        mus_a = torch.tensor(fine[idx], device="cuda")
+        ref = tf.frontier_mu_sweep(Q64, rets64, mus_a, s64)
+        if not bool((ref.status > 0).all()):
+            raise RuntimeError(f"config7 {name}: the float64 solve failed")
+        ti = torch.tensor(idx, device="cuda")
+        res_in = Result(fm.x[ti].double(), fm.S[ti], fm.status[ti])
+        Qmu = tf._with_mu_row(Q64, rets64, mus_a)
+        ms_ref, rr = timed(torch, lambda: refine_result(
+            Qmu, res_in, s64, 2, with_duals=False))
+        Vd = Q64.V
+        fobj = lambda X: 0.5 * (X * (X @ Vd)).sum(1)
+        fz = fobj(ref.x)
+        o["refine_ms"] = ms_ref
+        for tag, X in (("f32", res_in.x), ("refined", rr.x)):
+            gaps = ((fobj(X) - fz).abs() / fz.abs().clamp(min=1.0))
+            xinf = (X - ref.x).abs().amax(1)
+            o[f"{tag}_objgap"] = quantiles(gaps.cpu().numpy())
+            o[f"{tag}_xinf"] = quantiles(xinf.cpu().numpy())
+            log("config7", f"{name} {tag} ({C7_AUDIT} f64 refs on the "
+                f"card): objgap {o[f'{tag}_objgap']} xinf "
+                f"{o[f'{tag}_xinf']}")
+        log("config7", f"{name}: refine_result (LU, f64) of {C7_AUDIT} "
+            f"points {ms_ref:.1f} ms")
+        if not o["refined_objgap"]["max"] < 1e-6:
+            raise RuntimeError(f"config7 {name}: refined gap "
+                               f"{o['refined_objgap']['max']:.3e} >= 1e-6")
+        out[name] = o
+    return out, counters
+
+
+# ---- phase 14: bench_suite.py::config8 --------------------------------
+
+
+def phase_config8(torch, card, ktimes):
+    """Phase 14: bench_suite.py::config8's frontier at N=512 and 1024,
+    B=8192, float32, through solve_qp_batch_auto (module docstring);
+    ``ktimes`` are phase 3's kernel times."""
+    from ssqp_tpu_torch import Settings
+    from ssqp_tpu_torch.parallel import batch
+    from ssqp_tpu_torch.parallel.batch import (
+        frontier_batch, solve_qp_batch, solve_qp_batch_auto)
+    from ssqp_tpu_torch.solvers import refine
+
+    s32 = Settings.for_dtype(torch.float32)
+    out, counters = {}, {}
+    for N in C8_N:
+        Q, V, mu = bench_problem(torch, torch.float32, N=N)
+        B = C8_B
+        Qb, sh = frontier_batch(Q, grid(torch, 0, B))
+        # the tail's raw search result (the waves protocol's) and each
+        # refinement pass's width and time
+        raw, passes = [], []
+
+        def search(real, a, k):
+            raw.append(real(*a, **k))
+            return raw[-1]
+
+        def refine_pass(real, a, k):
+            ms, r = timed(torch, lambda: real(*a, **k))
+            passes.append((int(a[1].x.shape[0]), ms))
+            return r
+
+        spies = (Spy(batch, "solve_qp_batch_waves", run=search),
+                 Spy(refine, "refine_result_cg", run=refine_pass))
+        try:
+            res, launches = counted(
+                torch, lambda: solve_qp_batch_auto(Qb, s32, sh))
+        finally:
+            for spy in spies:
+                spy.undo()
+        tag = f"config8 N={N} B={B}"
+        check_solution(torch, res, Qb, B, tag)
+        if len(raw) != 1 or launches["cg_rows"] <= 0:
+            raise RuntimeError(f"{tag}: route searches {len(raw)}, "
+                               f"launches {launches}; the rule takes waves=8"
+                               " and the tail")
+        raw = raw[0]
+        changed = int((res.x != raw.x).any(1).sum())
+        o = {"route": "waves=8 + tail (4)", "tail_passes": passes,
+             "tail_instances": sum(w for w, _ in passes),
+             "tail_ms": sum(ms for _, ms in passes),
+             "tail_accepted": changed, "cg_launches": launches["cg_rows"],
+             "cg_by_body": launches["cg_by_body"]}
+        counters[tag] = launches
+        log("config8", f"{tag} f32 through solve_qp_batch_auto: waves=8 + "
+            f"the tail; solved {B}/{B}; tail passes (instances, ms) "
+            f"{passes}, accepted corrections {changed}; CG launches "
+            f"{launches['cg_rows']} by body {launches['cg_by_body']}")
+        runs = []
+        for rep in range(1, 4):  # fresh grids
+            Qg, shg = frontier_batch(Q, grid(torch, rep, B))
+            ms, r = timed(torch, lambda: solve_qp_batch_auto(Qg, s32, shg))
+            check_solution(torch, r, Qg, B, f"timed {tag}")
+            runs.append(ms)
+        best = min(runs)
+        o.update(ms=runs, qp_per_s=B / (best / 1e3))
+        log("config8", f"{tag} f32: best {best:.1f} ms = "
+            f"{o['qp_per_s']:.1f} QP/s (runs "
+            f"{', '.join(f'{m:.1f}' for m in runs)} ms) on {card}")
+
+        # the audit: C8_AUDIT instances of grid 0 in float64 on the card
+        Q64, _, _ = bench_problem(torch, torch.float64, N=N)
+        idx = torch.linspace(0, B - 1, C8_AUDIT, device="cuda").long()
+        Qa, sha = frontier_batch(Q64, grid(torch, 0, B).double()[idx])
+        ms64, r64 = timed(torch, lambda: solve_qp_batch(Qa, Settings(),
+                                                        shared=sha))
+        if not bool((r64.status > 0).all()):
+            raise RuntimeError(f"{tag}: the float64 audit solve failed")
+        gaps = objgap(Qa, res.x[idx], r64.x).cpu().numpy()
+        raw_gaps = objgap(Qa, raw.x[idx], r64.x).cpu().numpy()
+        o.update(audit_objgap=quantiles(gaps),
+                 audit_objgap_before_tail=quantiles(raw_gaps),
+                 audit_f64_ms=ms64)
+        log("config8", f"{tag}: f64 on the card ({C8_AUDIT} refs, "
+            f"{ms64:.1f} ms): objgap after the tail {quantiles(gaps)}; "
+            f"before it {quantiles(raw_gaps)}")
+        if not gaps.max() < 1e-6:
+            raise RuntimeError(f"{tag}: objective gap {gaps.max():.3e} >= "
+                               "1e-6")
+        out[f"N={N}"] = o
+    for label, C, N, steps in CG_TIMED[3:] + CG_TIMED_F64:
+        t = ktimes[label]
+        log("config8", f"CG kernel at {label}, N={N}, {steps} steps (phase "
+            f"3): {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms; bound "
+            + (f"3xTF32 {t['bound_3xtf32_ms']:.3f} ms, FFMA "
+               f"{t['bound_ffma_ms']:.3f} ms" if "bound_ffma_ms" in t
+               else f"DMMA {t['bound_ms']:.3f} ms, DFMA "
+               f"{t['bound_dfma_ms']:.3f} ms") + f" on {card}")
+    out["cg_kernel"] = {label: ktimes[label]
+                        for label, *_ in CG_TIMED[3:] + CG_TIMED_F64}
+    return out, counters
+
+
 def quantiles(a):
     return {k: float(np.quantile(a, p)) for k, p in
             (("q01", 0.01), ("median", 0.5), ("q99", 0.99), ("max", 1.0))}
@@ -1726,16 +2193,31 @@ def main():
         log("build", f"ptxas {kname}: {regs} registers, spill stores {st} "
             f"B, spill loads {ld} B, static shared {smem} B")
 
-    worst, ktimes, exits = phase_kernel(torch)
-    chol_worst, ctimes = phase_chol(torch)
-    res_auto, res_big, main_launches, rates = phase_main(torch, card)
-    phase_audit(torch, res_auto, B_AUTO)
-    phase_audit(torch, res_big, B_BIG)
-    res_ineq, ineq_launches, ineq_rate = phase_ineq(torch, card)
-    phase_ineq_audit(torch, res_ineq)
-    refined, ref_launches = phase_refined(torch, card)
-    lp, lp_launches = phase_lp(torch, card)
-    outer, outer_launches = phase_outer(torch, card)
+    walls = {}
+
+    def wall(phase, *args):
+        """``phase(torch, *args)``, its host wall time logged and summed
+        by phase."""
+        t = time.perf_counter()
+        out = phase(torch, *args)
+        dt = time.perf_counter() - t
+        walls[phase.__name__] = walls.get(phase.__name__, 0.0) + dt
+        log("wall", f"{phase.__name__}: {dt:.1f} s")
+        return out
+
+    worst, ktimes, exits = wall(phase_kernel)
+    chol_worst, ctimes = wall(phase_chol)
+    res_auto, res_big, main_launches, rates = wall(phase_main, card)
+    wall(phase_audit, res_auto, B_AUTO)
+    wall(phase_audit, res_big, B_BIG)
+    res_ineq, ineq_launches, ineq_rate = wall(phase_ineq, card)
+    wall(phase_ineq_audit, res_ineq)
+    refined, ref_launches = wall(phase_refined, card)
+    lp, lp_launches = wall(phase_lp, card)
+    outer, outer_launches = wall(phase_outer, card)
+    pdas, pdas_launches = wall(phase_pdas, card)
+    c7, c7_launches = wall(phase_config7, card)
+    c8, c8_launches = wall(phase_config8, card, ktimes)
 
     routes = dict(main_launches)
     routes["ineq auto B=256 (plain + tail)"] = ineq_launches
@@ -1743,10 +2225,15 @@ def main():
                    for m, c in ref_launches.items()})
     routes.update({f"lp {tag}": c for tag, c in lp_launches.items()})
     routes.update({f"outer {tag}": c for tag, c in outer_launches.items()})
+    for launches in (pdas_launches, c7_launches, c8_launches):
+        routes.update(launches)
     paths = {k: {route: c[k] for route, c in routes.items()}
              for k in ("cg_rows", "chol_solve")}
+    by_body = {route: c["cg_by_body"] for route, c in routes.items()
+               if c.get("cg_by_body")}
     print(json.dumps({"protocols": rates, "refined": refined, "lp": lp,
-                      "outer": outer}))
+                      "outer": outer, "pdas": pdas, "config7": c7,
+                      "config8": c8, "wall_s": walls}))
     head = ktimes[CG_TIMED[0][0]]
     ch = ctimes[CHOL_TIMED[0]]
     ch_b, ch_by = chol_bound(*CHOL_TIMED[0])
@@ -1764,6 +2251,7 @@ def main():
         "replaces": "ssqp_tpu/ops/pallas_cg.py:56",
         "launches": sum(paths["cg_rows"].values()),
         "launches_by_path": paths["cg_rows"],
+        "launches_by_body": by_body,
         "max_abs_err": worst,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1777,7 +2265,9 @@ def main():
                  f"{CG_TIMED[0][3]} steps, f32",
         "shapes": [dict(shape=f"{label}, N={N}, {steps} steps, f32",
                         **ktimes[label])
-                   for label, C, N, steps in CG_TIMED],
+                   for label, C, N, steps in CG_TIMED]
+        + [dict(shape=f"{label}, N={N}, {steps} steps", **ktimes[label])
+           for label, C, N, steps in CG_TIMED_F64],
         "ptxas": [{"kernel": k, "registers": r, "spill_stores": st,
                    "spill_loads": ld} for k, r, st, ld, _ in ptxas
                   if "cg_" in k],

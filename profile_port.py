@@ -1,6 +1,7 @@
 """Where the time goes in one batch of the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_port.py [ineq|frontier|waves|compact|lp|outer ...]
+    python3 profile_port.py [ineq|frontier|waves|compact|lp|outer|pdas|
+                             datasets|scale ...]
     python3 profile_port.py protocols [N,B ...]
 
 For each named path (default: frontier and ineq) it builds the problem of
@@ -12,7 +13,12 @@ solve_lp_batch_auto (plain), the c-grid (waves=8) and the rhs grid (dual
 waves=8) at B=256, and criss-cross at N=40, B=256 through
 solve_lp_batch_cclp_rescued; outer: the frontier's warm L-sweep and warm
 mu sweep over 128 points (models/frontier.py, float32) and solve_qp_diff
-at B=256 in float64, forward and backward, chip_smoke.py phase 11's),
+at B=256 in float64, forward and backward, chip_smoke.py phase 11's;
+pdas: the frontier at N=256, B=2048 with the W-PCG and with the Chebyshev
+PDAS rounds, phase 12's; datasets: the fine warm L-sweep (256 geometric
+points) of config 7's ungil_like and sp500_like, phase 13's; scale: the
+frontier at N=512 and N=1024, B=8192 through solve_qp_batch_auto (waves=8
+and the tail), phase 14's),
 runs two warm-up batches, times three unprofiled batches on fresh data with
 CUDA events, then runs one more batch under ``torch.profiler`` and prints
 one JSON line: the unprofiled times, the device time of every CUDA kernel
@@ -41,6 +47,8 @@ import re
 import sys
 import time
 from collections import defaultdict
+
+import numpy as np
 
 GROUPS = (  # first match wins; matched against the kernel's name
     ("cg_kernel", re.compile(r"cg_rows_(tc_)?kernel")),
@@ -117,7 +125,47 @@ def paths(torch):
         return lambda: solve_qp_diff(dataclasses.replace(Qb, q=q)).x.sum() \
             .backward()
 
-    return {"lp-mixed": (lp("mixed"), f"config 2 mixed B={cs.B_LP}"),
+    def pdas(flag):
+        st = dataclasses.replace(s32, **{flag: True})
+        return lambda i: (lambda Qb, sh: lambda: solve_qp_batch_auto(
+            Qb, st, sh))(*frontier_batch(Qf, cs.grid(torch, i, cs.B_AUTO)))
+
+    def dataset(k):
+        from ssqp_tpu_torch import make_qp
+        from ssqp_tpu_torch.models import frontier as tf
+
+        name, E, V, kw, (lo, hi) = cs.config7_datasets()[k]
+        f32 = lambda a: np.asarray(a, np.float32)
+        Q = make_qp(f32(V), np.zeros(len(E), np.float32), dtype=np.float32,
+                    device="cuda", **{k: f32(v) for k, v in kw.items()})
+        rets = torch.tensor(E, dtype=torch.float32, device="cuda")
+        lams = np.concatenate([[0.0], np.geomspace(lo, hi, cs.C7_FINE - 1)])
+
+        def make(i):
+            g = torch.tensor(lams * (1.0 + 1e-4 * i), dtype=torch.float32,
+                             device="cuda")
+            return lambda: tf.frontier_warm_sweep(Q, rets, g, s32)
+        return make
+
+    def scale(N):
+        Qn, _, _ = cs.bench_problem(torch, torch.float32, N=N)
+
+        def make(i):
+            Qb, sh = frontier_batch(Qn, cs.grid(torch, i, cs.C8_B))
+            return lambda: solve_qp_batch_auto(Qb, s32, sh)
+        return make
+
+    return {"pdas-pcg": (pdas("pdas_pcg"), f"pdas_pcg N={cs.N_MAIN} "
+                                           f"B={cs.B_AUTO}"),
+            "pdas-cheb": (pdas("pdas_cheb"), f"pdas_cheb N={cs.N_MAIN} "
+                                             f"B={cs.B_AUTO}"),
+            "c7-ungil": (dataset(0), f"config 7 ungil_n14 warm L-sweep, "
+                                     f"{cs.C7_FINE} points"),
+            "c7-sp500": (dataset(1), f"config 7 sp500_n263 warm L-sweep, "
+                                     f"{cs.C7_FINE} points"),
+            "scale-512": (scale(512), f"config 8 N=512 B={cs.C8_B}"),
+            "scale-1024": (scale(1024), f"config 8 N=1024 B={cs.C8_B}"),
+            "lp-mixed": (lp("mixed"), f"config 2 mixed B={cs.B_LP}"),
             "warm": (warm(False), f"warm L-sweep N={cs.N_MAIN}, "
                                   f"{cs.N_WARM} points"),
             "mu-warm": (warm(True), f"warm mu sweep N={cs.N_MAIN}, "
@@ -282,7 +330,10 @@ def main():
     wanted = sys.argv[1:] or ["frontier", "ineq"]
     for group, names in (("lp", ["lp-mixed", "lp-cgrid", "lp-rhs",
                                  "lp-cclp"]),
-                         ("outer", ["warm", "mu-warm", "diff"])):
+                         ("outer", ["warm", "mu-warm", "diff"]),
+                         ("pdas", ["pdas-pcg", "pdas-cheb"]),
+                         ("datasets", ["c7-ungil", "c7-sp500"]),
+                         ("scale", ["scale-512", "scale-1024"])):
         if group in wanted:
             i = wanted.index(group)
             wanted[i:i + 1] = names

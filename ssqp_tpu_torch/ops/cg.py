@@ -13,7 +13,8 @@ division floors; any-alive exit checked every 8 steps).
 
 Dispatch is by device and nothing else: a CPU tensor runs
 :func:`cg_rows_reference` (plain PyTorch); a CUDA tensor launches the kernel
-in ``csrc/cg.cu`` or raises. ``LAUNCHES`` counts kernel launches.
+in ``csrc/cg.cu`` or raises. ``LAUNCHES`` counts kernel launches,
+``LAUNCHES_BY_BODY`` the same by the body each took (:func:`body`).
 
 The kernel has two bodies, picked by a fixed rule on the arguments alone:
 float32 with one shared V (``V.dim() == 2``) and N <= 1024 runs the
@@ -27,11 +28,13 @@ a launch that fails raises.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional
 
 import torch
 
 LAUNCHES = 0
+LAUNCHES_BY_BODY = Counter()
 
 _CHUNK = 8
 
@@ -88,6 +91,15 @@ def cg_rows_reference(V, fmr, dinvr, Br, tol2r, iters, X0r,
         i += _CHUNK
         go = bool((rr > tol2r).any())
     return X, rr
+
+
+def body(C: int, N: int, dtype, shared: bool) -> str:
+    """The body a launch of C rows of width N takes, as the library's own
+    rule reports it: ``"tensor-core"`` where :func:`tile_rows` gives a tile
+    (float32, one shared V, N within the body's limit), else ``"cuda-core"``
+    (the first port's body)."""
+    tc = dtype == torch.float32 and shared and tile_rows(C, N) > 0
+    return "tensor-core" if tc else "cuda-core"
 
 
 def tile_rows(C: int, N: int) -> int:
@@ -165,6 +177,7 @@ def cg_padded_rows(V, fmr, dinvr, Br, tol2r, iters, X0r,
     if err != 0:
         raise RuntimeError(f"cg kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_BODY[body(C, N, dtype, V.dim() == 2)] += 1
     return X, rr
 
 

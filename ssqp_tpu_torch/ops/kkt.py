@@ -8,8 +8,12 @@ block on the Schur complement, exactly as in the JAX package. Every function
 takes ``(B, ...)`` per-instance tensors; V and AG may be shared (unbatched)
 or per-instance.
 
-The CG solves go to the fused kernel (ops/cg.py) on CUDA tensors and to its
-plain PyTorch version on CPU tensors. The (R, R) Schur systems and the other
+The Jacobi-CG solves go to the fused kernel (ops/cg.py) on CUDA tensors and
+to its plain PyTorch version on CPU tensors. The two PDAS variants of the
+JAX package, the shared-inverse PCG (``Settings.pdas_pcg``) and the
+Chebyshev semi-iteration (``Settings.pdas_cheb``), are XLA loops there and
+plain PyTorch loops here (:func:`_vp_pcg`, :func:`_vp_cheb`); the
+S-loop's solves stay on the kernel. The (R, R) Schur systems and the other
 batched SPD solves go through :func:`spd_solve`: the fused Cholesky kernel
 route (ops/chol.py) in float32 at n >= 16, a library Cholesky otherwise.
 """
@@ -73,13 +77,168 @@ def _vp_cg(V, fm, B, dinv, tol2, iters, X0):
     return cg_padded_batch(V, fm, B, dinv, tol2, iters, X0)
 
 
-def cg_solve_padded(V, fm, B, iters, rtol, X0=None):
+_CHUNK = 8  # iterations between the host's any-alive checks
+
+
+def _masked_loop(step, state, tol2, iters):
+    """Run ``state = step(*state)`` while an instance runs, per instance: the
+    loop of a vmapped ``lax.while_loop`` whose cond is ``i < iters`` and any
+    column of the instance above its tolerance. ``state[1]`` is the residual
+    (batch, N, K); tol2 (batch, K). An instance whose cond fails keeps its
+    state from then on (its later iterations are masked out, as the vmapped
+    loop selects the old carry). The host checks that some instance still
+    runs before every :data:`_CHUNK` iterations; in between the check is on
+    the device. Returns the final state."""
+
+    def running(R):
+        return (torch.sum(R * R, dim=1) > tol2).any(dim=1)
+
+    i = 0
+    while i < iters and bool(running(state[1]).any()):
+        for _ in range(min(_CHUNK, iters - i)):
+            run = running(state[1])
+            new = step(*state)
+            state = tuple(
+                torch.where(run.view((-1,) + (1,) * (o.dim() - 1)), n, o)
+                if o.dim() > 0 else n for n, o in zip(new, state))
+        i += _CHUNK
+    return state
+
+
+def _vp_pcg(V, fm, B, W, tol2, iters, X0):
+    """PCG on ``Vp X = B`` with the shared-inverse preconditioner
+    ``M^{-1} r = f.(W (f.r)) + (1-f).r`` (``W ~= V^{-1}``): the JAX
+    package's ``_vp_pcg_xla``, batch-first (fm (batch, N), B and X0 (batch,
+    N, K), tol2 (batch, K); V and W shared or per instance). Two products
+    with an (N, N) matrix per iteration against Jacobi's one. Columns
+    freeze on their own (alpha = 0, beta = 0 once converged), instances on
+    their own (:func:`_masked_loop`). Returns (X, final squared residual
+    (batch, K))."""
+    f = fm.unsqueeze(-1)
+
+    def prec(r):
+        return f * mm(W, r * f) + (1.0 - f) * r
+
+    r = B - _vp_apply(V, fm, X0)
+    z = prec(r)
+    rz = torch.sum(r * z, dim=1)
+
+    def step(X, r, p, rz):
+        alive = torch.sum(r * r, dim=1) > tol2
+        Ap = _vp_apply(V, fm, p)
+        pAp = torch.sum(p * Ap, dim=1)
+        alpha = torch.where(alive & (pAp > 0),
+                            rz / torch.clamp(pAp, min=1e-30),
+                            torch.zeros_like(pAp)).unsqueeze(1)
+        X = X + alpha * p
+        r = r - alpha * Ap
+        zn = prec(r)
+        rzn = torch.sum(r * zn, dim=1)
+        beta = torch.where(alive, rzn / torch.clamp(rz, min=1e-30),
+                           torch.zeros_like(rz)).unsqueeze(1)
+        return X, r, zn + beta * p, rzn
+
+    X, r, _, _ = _masked_loop(step, (X0, r, z, rz), tol2, int(iters))
+    return X, torch.sum(r * r, dim=1)
+
+
+def _vp_cheb(V, fm, B, dinv, lo, hi, tol2, iters, X0):
+    """Jacobi-preconditioned Chebyshev semi-iteration on ``Vp X = B`` over
+    the spectral interval ``[lo, hi]`` of the Jacobi-scaled operator (see
+    :func:`shared_jacobi_bounds`): the JAX package's ``_vp_cheb_xla``,
+    batch-first (dinv (batch, N); the rest as :func:`_vp_pcg`). The step
+    coefficients come from the fixed recurrence (Saad, alg. 12.1)
+    ``rho_k = 1/(2 sigma - rho_{k-1})``, ``D_k = rho_k rho_{k-1} D_{k-1} +
+    (2 rho_k / delta) Z_k``, not from dot products; they are the same for
+    every running instance (all are at the same step), so ``rho``, ``sigma``
+    and ``delta`` are 0-d device tensors in the batch dtype. The columns of
+    an instance do not freeze: the instance runs until all of them
+    converge, then stops on its own (:func:`_masked_loop`). Returns (X,
+    final squared residual (batch, K))."""
+    dtype, dev = B.dtype, B.device
+    lo = torch.as_tensor(lo, dtype=dtype, device=dev)
+    hi = torch.as_tensor(hi, dtype=dtype, device=dev)
+    theta = (hi + lo) / 2.0
+    delta = torch.clamp((hi - lo) / 2.0, min=1e-30)
+    sigma = theta / delta
+    dv = dinv.unsqueeze(-1)
+
+    R = B - _vp_apply(V, fm, X0)
+    D = R * dv / theta
+
+    def step(X, R, D, rho):
+        X = X + D
+        R = R - _vp_apply(V, fm, D)
+        rho_n = 1.0 / (2.0 * sigma - rho)
+        D = (rho_n * rho) * D + (2.0 * rho_n / delta) * (R * dv)
+        return X, R, D, rho_n
+
+    X, R, _, _ = _masked_loop(step, (X0, R, D, 1.0 / sigma), tol2,
+                              int(iters))
+    return X, torch.sum(R * R, dim=1)
+
+
+def shared_jacobi_bounds(V, W=None, power_iters: int = 32):
+    """Spectral interval ``(lo, hi)`` of the Jacobi-scaled shared operator
+    ``S = D^{-1/2} V D^{-1/2}`` for the Chebyshev solve, with safety
+    margins, as the JAX package's ``shared_jacobi_bounds``: V (N, N).
+
+    ``hi``: 1.1 times a power-iteration Rayleigh quotient, capped by the
+    Gershgorin row-sum bound (an upper bound of the spectrum). ``lo``: 0.8
+    over the top eigenvalue of ``D^{1/2} W D^{1/2}`` when ``W ~= V^{-1}`` is
+    given, else 0.8 times ``hi`` less the top eigenvalue of ``hi I - S``;
+    then clipped into ``[eps hi, 1]`` and ``hi`` raised to at least 1 (the
+    padded identity block contributes eigenvalue 1). By Cauchy interlacing
+    the interval covers every pin mask's operator. A NaN ``W`` (a failed
+    factorization) gives a NaN ``lo``, as in the JAX package: the clip keeps
+    it, and the Chebyshev solve on it returns NaN, which the KKT solve's
+    finite gate rejects. Returns 0-d tensors ``(lo, hi)``."""
+    dtype, dev = V.dtype, V.device
+    N = V.shape[0]
+    tiny = torch.finfo(dtype).tiny
+    s = torch.sqrt(torch.clamp(torch.diagonal(V), min=tiny))
+    sinv = 1.0 / s
+    one = torch.ones((), dtype=dtype, device=dev)
+
+    def smv(v):
+        return sinv * (V @ (sinv * v))
+
+    def power(fn, v0, n):
+        v = v0
+        for _ in range(n):
+            w = fn(v)
+            v = w / torch.clamp(torch.linalg.vector_norm(w), min=tiny)
+        return torch.dot(v, fn(v)) / torch.clamp(torch.dot(v, v), min=tiny)
+
+    i = torch.arange(N, dtype=dtype, device=dev)
+    v0 = torch.cos(0.7 * i + 0.3) + 0.01
+    v0 = v0 / torch.linalg.vector_norm(v0)
+
+    ray_hi = power(smv, v0, power_iters)
+    gersh = torch.max(torch.sum(
+        torch.abs(sinv.unsqueeze(1) * V * sinv.unsqueeze(0)), dim=1))
+    hi = torch.maximum(torch.minimum(1.1 * ray_hi, gersh), one)
+    if W is not None:
+        mu = power(lambda v: s * (W @ (s * v)), v0, power_iters)
+        lo = 0.8 / torch.maximum(mu, one)
+    else:
+        ray_shift = power(lambda v: hi * v - smv(v), v0, power_iters)
+        lo = 0.8 * torch.clamp(hi - ray_shift, min=tiny)
+    eps = torch.finfo(dtype).eps
+    lo = torch.minimum(torch.maximum(lo, eps * hi), one)
+    return lo, hi
+
+
+def cg_solve_padded(V, fm, B, iters, rtol, X0=None, W=None, cheb=None):
     """Jacobi-preconditioned CG on ``Vp X = B`` (multi-rhs, B (batch, N, K)).
 
     ``X0`` warm-starts the iteration; a (near-)zero right-hand-side column
     restarts at 0 (its exact solution), since a stale warm start there could
     never reach ``rtol * ||b||``. The norm floor is the dtype's smallest
-    normal. Returns (X, relative residual (batch, K))."""
+    normal. ``cheb=(lo, hi)`` runs the Chebyshev semi-iteration on that
+    interval instead (:func:`_vp_cheb`), else ``W`` the shared-inverse PCG
+    (:func:`_vp_pcg`), else the CG kernel: the JAX package's order.
+    Returns (X, relative residual (batch, K))."""
     dinv = 1.0 / (fm * torch.diagonal(V, dim1=-2, dim2=-1) + (1.0 - fm))
     tiny = torch.finfo(B.dtype).tiny
     bn2 = torch.sum(B * B, dim=1)
@@ -90,7 +249,12 @@ def cg_solve_padded(V, fm, B, iters, rtol, X0=None):
     else:
         live = (bn2 > tiny).unsqueeze(1)
         X = torch.where(live, X0, torch.zeros_like(X0))
-    X, rr = _vp_cg(V, fm, B, dinv, tol2, int(iters), X)
+    if cheb is not None:
+        X, rr = _vp_cheb(V, fm, B, dinv, cheb[0], cheb[1], tol2, iters, X)
+    elif W is not None:
+        X, rr = _vp_pcg(V, fm, B, W, tol2, iters, X)
+    else:
+        X, rr = _vp_cg(V, fm, B, dinv, tol2, int(iters), X)
     return X, torch.sqrt(rr / bnorm2)
 
 
@@ -101,11 +265,12 @@ def _relmax(rel):
 
 
 def kkt_solve_cg(V, q, AG, bg, z, free, keep, cg_iters, rtol, ok_rtol=1e-3,
-                 ridge=0.0, x0=None, return_sol=False):
+                 ridge=0.0, x0=None, return_sol=False, W=None, cheb=None):
     """CG form of :func:`kkt_solve` (same contract, factorization-free).
 
     Batched: q, z (B, N); free (B, N) bool; keep (B, R) bool; AG (R, N) or
-    (B, R, N); bg (R,) or (B, R); ``x0`` (B, N, 1+R) warm start."""
+    (B, R, N); bg (R,) or (B, R); ``x0`` (B, N, 1+R) warm start. ``W`` and
+    ``cheb`` pick the inner solve (:func:`cg_solve_padded`)."""
     dtype = z.dtype
     fm = free.to(dtype)
     bm = 1.0 - fm
@@ -119,14 +284,15 @@ def kkt_solve_cg(V, q, AG, bg, z, free, keep, cg_iters, rtol, ok_rtol=1e-3,
 
     if R == 0:
         sol, rel = cg_solve_padded(V, fm, cp.unsqueeze(-1), cg_iters, rtol,
-                                   X0=x0)
+                                   X0=x0, W=W, cheb=cheb)
         w = sol[..., 0]
         alphaL = torch.zeros((z.shape[0], 0), dtype=dtype, device=z.device)
         alpha_f = -w
         relmax = _relmax(rel)
     else:
         rhs = torch.cat([cp.unsqueeze(-1), Ap.transpose(1, 2)], dim=2)
-        sol, rel = cg_solve_padded(V, fm, rhs, cg_iters, rtol, X0=x0)
+        sol, rel = cg_solve_padded(V, fm, rhs, cg_iters, rtol, X0=x0, W=W,
+                                   cheb=cheb)
         relmax = _relmax(rel)
         w, mT = sol[..., 0], sol[..., 1:]
         C = torch.bmm(Ap, mT)

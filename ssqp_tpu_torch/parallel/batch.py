@@ -36,7 +36,10 @@ from ssqp_tpu_torch.utils.precision import highest_matmul
 
 def settings_for_shared(settings: Settings, shared: tuple) -> Settings:
     """Disable the PDAS round-1 closed form when V is per-instance: its
-    one-time W ~= V^{-1} only amortizes as a shared matrix."""
+    one-time W ~= V^{-1} only amortizes as a shared matrix. The Chebyshev
+    and W-PCG rounds (``pdas_cheb``, ``pdas_pcg``) are built on that W, so
+    such a batch runs Jacobi-CG rounds under either flag, as in the JAX
+    package."""
     if "V" not in shared and settings.pdas_precond:
         settings = dataclasses.replace(settings, pdas_precond=False)
     return settings

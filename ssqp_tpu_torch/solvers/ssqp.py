@@ -28,7 +28,7 @@ import torch
 from ssqp_tpu_torch.ops.bmat import cat_vec, mtv, mv, stack_rows
 from ssqp_tpu_torch.ops.kkt import (
     kkt_allfree_shared, kkt_solve, kkt_solve_cg, recover_dropped_multipliers,
-    recover_duals,
+    recover_duals, shared_jacobi_bounds,
 )
 from ssqp_tpu_torch.ops.masked_gj import select_purge
 from ssqp_tpu_torch.types import (
@@ -424,10 +424,14 @@ def _pdas_update(Q: QP, fu, fd, Sx, Se, res):
     return Sx_new, Se_new, torch.clamp(alpha, min=Q.d, max=Q.u)
 
 
-def _pdas_round(Q: QP, settings: Settings, Sx, Se, sol):
+def _pdas_round(Q: QP, settings: Settings, Sx, Se, sol, W_loop=None,
+                cheb_bounds=None):
     """One PDAS identification round on a batch: CG KKT solve on the current
-    pinned set (warm-started from ``sol``) + semismooth status rebuild.
-    Returns (Sx', Se', z', sol', changed (B,))."""
+    pinned set (warm-started from ``sol``) + semismooth status rebuild. The
+    inner solve is the CG kernel, or the Chebyshev semi-iteration on
+    ``cheb_bounds``, or the PCG preconditioned by ``W_loop``
+    (ops/kkt.py::cg_solve_padded). Returns (Sx', Se', z', sol', changed
+    (B,))."""
     M, J = Q.M, Q.J
     dtype = Q.V.dtype
     AG, bg = _rows(Q)
@@ -441,7 +445,8 @@ def _pdas_round(Q: QP, settings: Settings, Sx, Se, sol):
     zb = torch.where(Sx == UP, Q.u, torch.where(Sx == DN, Q.d, 0.0))
     res, sol = kkt_solve_cg(Q.V, Q.q, AG, bg, zb, free, keep,
                             settings.pdas_cg_iters, settings.pdas_rtol,
-                            ridge=ridge, x0=sol, return_sol=True)
+                            ridge=ridge, x0=sol, return_sol=True,
+                            W=W_loop, cheb=cheb_bounds)
     Sx_new, Se_new, z_new = _pdas_update(Q, fu, fd, Sx, Se, res)
     changed = (Sx_new != Sx).any(dim=1) | (Se_new != Se).any(dim=1)
     return Sx_new, Se_new, z_new, sol, changed
@@ -449,7 +454,10 @@ def _pdas_round(Q: QP, settings: Settings, Sx, Se, sol):
 
 def _pdas_shared_W(V, settings: Settings):
     """One-time shared ``W ~= V^{-1}`` (shifted Cholesky; NaN when the
-    factorization fails, which round 1's finite gate then rejects)."""
+    factorization fails, which round 1's finite gate then rejects) and,
+    under ``Settings.pdas_cheb``, the Chebyshev rounds' spectral interval
+    (ops/kkt.py::shared_jacobi_bounds, from V and W; None otherwise).
+    Returns ``(W, cheb_bounds)``."""
     dtype = V.dtype
     N = V.shape[0]
     eye = torch.eye(N, dtype=dtype, device=V.device)
@@ -459,7 +467,8 @@ def _pdas_shared_W(V, settings: Settings):
     W = torch.cholesky_solve(eye, Lw)
     if int(info) != 0:
         W = torch.full_like(W, float("nan"))
-    return W
+    cheb_bounds = shared_jacobi_bounds(V, W) if settings.pdas_cheb else None
+    return W, cheb_bounds
 
 
 def _pdas_round1(Q: QP, settings: Settings, W, Sx0, Se0, z0, sol0):
@@ -559,12 +568,12 @@ def _guess_start(Q: QP, settings: Settings, rounds: int = 12):
     (Settings.pdas_precond), the water-filling seed (single-equality box
     QPs), then CG rounds until each instance's status vector stops changing
     or its ``rounds`` budget is spent. Each round runs on the instances still
-    changing. Returns batched ``(z, Sx, Se, sol)``."""
-    if settings.pdas_pcg or settings.pdas_cheb:
-        raise NotImplementedError(
-            "pdas_pcg / pdas_cheb are default-off experiments that are not "
-            "ported (ROADMAP.md, queue 1: not ported unless an H100 "
-            "measurement asks for it)")
+    changing. The rounds' inner solve follows the JAX package: the
+    Chebyshev semi-iteration under ``pdas_cheb``, the PCG preconditioned by
+    W under ``pdas_pcg``, Jacobi CG on the kernel otherwise; both variants
+    need W, so without ``pdas_precond`` (which ``settings_for_shared``
+    turns off for a per-instance V) they run Jacobi CG, as in the JAX
+    package. Returns batched ``(z, Sx, Se, sol)``."""
     Bn = batch_of(Q)
     N, M, J = Q.N, Q.M, Q.J
     dtype, dev = Q.V.dtype, Q.device
@@ -573,11 +582,14 @@ def _guess_start(Q: QP, settings: Settings, rounds: int = 12):
     z = torch.zeros((Bn, N), dtype=dtype, device=dev)
     sol = torch.zeros((Bn, N, 1 + M + J), dtype=dtype, device=dev)
     it = torch.zeros(Bn, dtype=torch.int32, device=dev)
+    W_loop = cheb_bounds = None
     if settings.pdas_precond:
         if Q.V.dim() != 2:
             raise ValueError("pdas_precond needs a shared V "
                              "(settings_for_shared turns it off otherwise)")
-        W = _pdas_shared_W(Q.V, settings)
+        W, cheb_bounds = _pdas_shared_W(Q.V, settings)
+        if settings.pdas_pcg:
+            W_loop = W
         it, Sx, Se, z, sol = _pdas_round1(Q, settings, W, Sx, Se, z, sol)
     if settings.pdas_waterfill and M == 1 and J == 0:
         okw, Sxw, zw = _waterfill_seed(Q)
@@ -589,7 +601,8 @@ def _guess_start(Q: QP, settings: Settings, rounds: int = 12):
         if idx.numel() == 0:
             break
         Sxn, Sen, zn, soln, ch = _pdas_round(Q.take(idx), settings, Sx[idx],
-                                             Se[idx], sol[idx])
+                                             Se[idx], sol[idx], W_loop,
+                                             cheb_bounds)
         Sx[idx], Se[idx], z[idx], sol[idx] = Sxn, Sen, zn, soln
         it[idx] += 1
         active[idx] = ch & (it[idx] < rounds)

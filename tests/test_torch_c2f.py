@@ -1,8 +1,9 @@
 """The port's coarse-to-fine grid protocol
 (ssqp_tpu_torch/parallel/batch.py::solve_qp_batch_c2f) against the JAX
-package's on the CPU: coarse=4 in float64 at B=32, on bench.py's frontier
-generator cut to N=32 (coarse=8 and float32 reach the JAX optima in
-tests/test_torch_protocols.py and tests/test_torch_protocols_f32.py).
+package's on the CPU: coarse=4 and coarse=8 in float64 at B=32, on
+bench.py's frontier generator cut to N=32 (float32 reaches the JAX optima
+in tests/test_torch_protocols_f32.py). Two JAX compiles, one per coarse
+width.
 
 Tolerance: S and status equal on every instance, x within 1e-9, lam and
 gamma within 1e-6 (tests/test_parallel.py's bar for the deferred dual
@@ -40,16 +41,35 @@ def frontier(dtype, B):
     return Qb, tb.frontier_batch(Qt, lams)[0], sh
 
 
+_RUNS = {}
+
+
+def _runs(coarse):
+    """(port batch, shared, JAX result, port result), one JAX compile per
+    coarse width."""
+    if coarse not in _RUNS:
+        Qb, Qt, sh = frontier(np.float64, 32)
+        rj = jb.solve_qp_batch_c2f(Qb, JSettings(), sh, coarse=coarse)
+        rt = tb.solve_qp_batch_c2f(Qt, TSettings(), sh, coarse=coarse)
+        _RUNS[coarse] = (Qt, sh, jax.tree.map(np.asarray, rj), rt.numpy())
+    return _RUNS[coarse]
+
+
 @pytest.fixture(scope="module")
 def runs():
-    """(port batch, shared, JAX result, port result), one JAX compile."""
-    Qb, Qt, sh = frontier(np.float64, 32)
-    rj = jb.solve_qp_batch_c2f(Qb, JSettings(), sh, coarse=4)
-    rt = tb.solve_qp_batch_c2f(Qt, TSettings(), sh, coarse=4)
-    return Qt, sh, jax.tree.map(np.asarray, rj), rt.numpy()
+    return _runs(4)
 
 
 def test_c2f_matches_jax(runs):
+    _assert_same(runs)
+
+
+def test_c2f_coarse8_matches_jax():
+    """At coarse=8 (4 anchors, 8 points apart) too, status for status."""
+    _assert_same(_runs(8))
+
+
+def _assert_same(runs):
     _, _, rj, rt = runs
     assert (rj.status > 0).all()
     np.testing.assert_array_equal(rt.status, rj.status)

@@ -44,7 +44,12 @@ Tolerances:
     on the CPU: float64 status equal, objective within 1e-9 relative, and
     for the simplex routes S equal and x within 1e-9 (criss-cross walks
     depend on the backend's inverse: status and objective only); float32
-    the same statuses, objective within 5e-5 relative.
+    the same statuses, objective within 5e-5 relative;
+  * the PDAS variants (Chebyshev, W-PCG) on the card against the same call
+    on the CPU: float64 S equal and x within 1e-9, float32 objective
+    within 1e-5 relative; the Chebyshev interval on the card encloses the
+    float64 spectrum; the CG kernel at N = 1024 (tensor-core body) and
+    1025 (first body) within 5e-4 of the plain version.
 """
 
 import dataclasses
@@ -972,3 +977,64 @@ def test_sharded_solves_on_a_one_card_nccl_group(dev, tmp_path):
                                      device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+# ---- the PDAS variants (Chebyshev, W-PCG) and the N = 1024 edge ----------
+
+
+@pytest.mark.parametrize("flag", ["pdas_cheb", "pdas_pcg"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pdas_variant_on_card_matches_cpu(dev, flag, dtype):
+    """The Chebyshev and W-PCG rounds on CUDA tensors against the same
+    call on the CPU; the S-loop still launches the CG kernel."""
+    from ssqp_tpu_torch.ops import kkt
+
+    Q, lams = _frontier(dtype, B=48)
+    st = dataclasses.replace(Settings.for_dtype(dtype), **{flag: True})
+    Qb, sh = tb.frontier_batch(Q, lams)
+    rc = tb.solve_qp_batch_auto(Qb, st, sh).numpy()
+    calls = []
+    name = "_vp_cheb" if flag == "pdas_cheb" else "_vp_pcg"
+    real = getattr(kkt, name)
+    setattr(kkt, name, lambda *a: (calls.append(1), real(*a))[1])
+    try:
+        cg.LAUNCHES = 0
+        Qg, shg = tb.frontier_batch(Q.to(dev), lams)
+        rg = tb.solve_qp_batch_auto(Qg, st, shg).numpy()
+    finally:
+        setattr(kkt, name, real)
+    assert calls and cg.LAUNCHES > 0
+    assert (rc.status > 0).all() and (rg.status > 0).all()
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(rg.S, rc.S)
+        np.testing.assert_allclose(rg.x, rc.x, rtol=0, atol=1e-9)
+    else:
+        fc, fg = _obj(Qb, rc.x), _obj(Qb, rg.x)
+        assert (np.abs(fg - fc) <= 1e-5 * np.maximum(1.0, np.abs(fc))).all()
+
+
+@pytest.mark.parametrize("with_W", [False, True])
+def test_shared_jacobi_bounds_on_card_enclose_the_spectrum(dev, with_W):
+    from ssqp_tpu_torch.ops.kkt import shared_jacobi_bounds
+
+    Q, _ = _frontier(torch.float32, N=256)
+    V = Q.V.to(dev)
+    W, _ = ts._pdas_shared_W(V, Settings.for_dtype(torch.float32))
+    lo, hi = shared_jacobi_bounds(V, W if with_W else None)
+    assert lo.device.type == "cuda"
+    s = torch.diagonal(V).double().rsqrt()
+    ev = torch.linalg.eigvalsh(s[:, None] * V.double() * s[None, :])
+    assert float(lo) <= float(ev.min()) and float(hi) >= float(ev.max())
+
+
+def test_cg_body_switch_at_1024(dev):
+    """N = 1024 takes the tensor-core body, N = 1025 the first port's; both
+    agree with the plain version and are counted by body."""
+    for N, want in ((1024, "tensor-core"), (1025, "cuda-core")):
+        args = _cg_problem(3, N, 2, 8, torch.float32, False)
+        X0 = torch.zeros_like(args[2])
+        cg.LAUNCHES_BY_BODY.clear()
+        Xk, _, Xp, _ = _both(args, 64, X0, dev)
+        assert dict(cg.LAUNCHES_BY_BODY) == {want: 1}
+        assert (cg.tile_rows(16, N) > 0) == (want == "tensor-core")
+        np.testing.assert_allclose(Xk, Xp, rtol=0, atol=5e-4)

@@ -194,9 +194,13 @@ def test_port_imports_no_jax_and_no_jax_package():
     bad = [(p.name, m) for p in files for m in _imports(p)
            if m.split(".")[0] in ("jax", "jaxlib", "ssqp_tpu")]
     assert not bad, bad
-    for script in ("chip_smoke.py", "profile_port.py"):
-        assert not [m for m in _imports(PORT.parent / script)
-                    if m.split(".")[0] in ("jax", "jaxlib", "ssqp_tpu")]
+    scripts = [PORT.parent / s for s in ("chip_smoke.py", "profile_port.py")]
+    scripts += sorted((PORT.parent / "examples").glob("torch_*.py"))
+    assert len(scripts) >= 8
+    for script in scripts:
+        assert not [m for m in _imports(script)
+                    if m.split(".")[0] in ("jax", "jaxlib", "ssqp_tpu")], \
+            script.name
 
 
 def test_port_and_chip_smoke_import_with_jax_blocked():
