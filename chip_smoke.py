@@ -610,19 +610,32 @@ class Spy:
 
 def counted(torch, fn):
     """(result, launches) of one call with every kernel count set to 0
-    just before and read just after."""
+    just before and read just after; the launches by CG body and by
+    Cholesky (B, n, K) from the launch records that the program keeps
+    while a profiler records (a CPU ``torch.profiler`` session around the
+    call, whose host cost lands in any time taken inside it)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
     from ssqp_tpu_torch.ops import cg, chol
+    from ssqp_tpu_torch.utils import diagnostics
 
     torch.cuda.synchronize()
     cg.LAUNCHES = chol.LAUNCHES = 0
-    cg.LAUNCHES_BY_BODY.clear()
-    chol.LAUNCHES_BY_SHAPE.clear()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, {"cg_rows": cg.LAUNCHES,
-                 "cg_by_body": dict(cg.LAUNCHES_BY_BODY),
+    diagnostics.clear_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+        torch.cuda.synchronize()
+    rec = diagnostics.counters()
+    by_body, by_shape = Counter(), Counter()
+    for (_, _, _, _, body), r in rec.get("cg.launches", {}).items():
+        by_body[body] += r["launches"]
+    for (B, n, K, _, _), k in rec.get("chol.launches", {}).items():
+        by_shape[(B, n, K)] += k
+    return out, {"cg_rows": cg.LAUNCHES, "cg_by_body": dict(by_body),
                  "chol_solve": chol.LAUNCHES,
-                 "chol_by_shape": dict(chol.LAUNCHES_BY_SHAPE)}
+                 "chol_by_shape": dict(by_shape)}
 
 
 def run_route(torch, fn, Qb, B, tag, counters):
@@ -794,8 +807,8 @@ def phase_refined(torch, card):
     for method in ("cg", "lu"):
         fn = lambda: solve_qp_batch_refined(
             Qb, search_dtype=torch.float32, shared=sh, method=method)
-        fn()  # warm-up
-        (ms, r), counters[method] = counted(torch, lambda: timed(torch, fn))
+        _, counters[method] = counted(torch, fn)  # also the warm-up
+        ms, r = timed(torch, fn)
         # the refinement solves the search's labeled active set: it meets
         # the float64 solve's x to 1e-9 where the float32 search labeled as
         # float64 does; where the search's polish pinned a variable within
@@ -1422,8 +1435,8 @@ def phase_outer_diff(torch, card):
         lv = leaves()
         Ql = dataclasses.replace(Qb, **lv)
         torch.cuda.synchronize()
-        (ms_f, r), launches = counted(torch, lambda: timed(
-            torch, lambda: solve_qp_diff(Ql)))
+        _, launches = counted(torch, lambda: solve_qp_diff(Ql))
+        ms_f, r = timed(torch, lambda: solve_qp_diff(Ql))
         solved = int((r.status > 0).sum())
         if solved != B_DIFF or launches["cg_rows"] <= 0:
             raise RuntimeError(f"diff {dn}: solved {solved}, {launches}")
@@ -1991,8 +2004,9 @@ def phase_config7(torch, card):
         o = {"N": N}
 
         def sweep(tag, fn, grid_):
-            (ms, fr), launches = counted(torch, lambda: timed(
-                torch, lambda: fn(Q32, rets, t32(grid_), s32)))
+            _, launches = counted(torch, lambda: fn(Q32, rets, t32(grid_),
+                                                    s32))
+            ms, fr = timed(torch, lambda: fn(Q32, rets, t32(grid_), s32))
             n = len(grid_)
             solved = int((fr.status > 0).sum())
             st = fr.status.float()
@@ -2098,11 +2112,13 @@ def phase_config8(torch, card, ktimes):
         spies = (Spy(batch, "solve_qp_batch_waves", run=search),
                  Spy(refine, "refine_result_cg", run=refine_pass))
         try:
-            res, launches = counted(
-                torch, lambda: solve_qp_batch_auto(Qb, s32, sh))
+            res = solve_qp_batch_auto(Qb, s32, sh)
+            torch.cuda.synchronize()
         finally:
             for spy in spies:
                 spy.undo()
+        # the launches of the same batch, counted apart from the pass times
+        _, launches = counted(torch, lambda: solve_qp_batch_auto(Qb, s32, sh))
         tag = f"config8 N={N} B={B}"
         check_solution(torch, res, Qb, B, tag)
         if len(raw) != 1 or launches["cg_rows"] <= 0:

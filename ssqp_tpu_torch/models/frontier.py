@@ -39,6 +39,7 @@ from ssqp_tpu_torch.solvers.phase1 import init_qp_traced
 from ssqp_tpu_torch.solvers.ssqp import (
     _primal_violation, _rows, solve_qp_auto_core, solve_qp_loop)
 from ssqp_tpu_torch.types import EO, IN, QP, Settings
+from ssqp_tpu_torch.utils.diagnostics import count, span
 from ssqp_tpu_torch.utils.precision import highest_matmul
 
 _ALL_BUT_Q = ("V", "A", "G", "b", "g", "d", "u")
@@ -163,21 +164,25 @@ def _warm_sweep(Q: QP, settings: Settings, points, mk) -> tuple:
     (S, x); where it fails, the point is re-solved cold (guess + Phase-1 +
     fast/exact passes), and the carry moves on only from a point that
     solved. The first point's Phase-1 status gates every step, as the
-    JAX package's ``pre_status``."""
+    JAX package's ``pre_status``. Each point runs inside the span
+    ``ssqp.warm_point``; a cold re-solve adds 1 to
+    ``phase1.fallback_instances``."""
     N = Q.N
     Q0 = mk(points[0:1])
     x, Sx, Se, st1 = init_qp_traced(Q0, settings)
     xs, Ss, sts = [], [], []
     for i in range(points.shape[0]):
-        Qi = mk(points[i:i + 1])
-        res = solve_qp_loop(Qi, Sx, Se, x, settings, pre_status=st1)
-        if not bool(res.status[0] > 0):  # cold re-solve on failure only
-            res = solve_qp_auto_core(Qi, settings)
-        if bool(res.status[0] > 0):
-            Sx, Se, x = res.S[:, :N], res.S[:, N:], res.x
-        xs.append(res.x)
-        Ss.append(res.S)
-        sts.append(res.status)
+        with span("warm_point"):
+            Qi = mk(points[i:i + 1])
+            res = solve_qp_loop(Qi, Sx, Se, x, settings, pre_status=st1)
+            if not bool(res.status[0] > 0):  # cold re-solve on failure only
+                count("phase1.fallback_instances", 1)
+                res = solve_qp_auto_core(Qi, settings)
+            if bool(res.status[0] > 0):
+                Sx, Se, x = res.S[:, :N], res.S[:, N:], res.x
+            xs.append(res.x)
+            Ss.append(res.S)
+            sts.append(res.status)
     return torch.cat(xs), torch.cat(Ss), torch.cat(sts)
 
 

@@ -62,8 +62,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name in ("ssqp_cg_rows_f32", "ssqp_cg_rows_f64"):
         fn = getattr(lib, name)
-        # Vt, vstride, inst, fm, dinv, B, tol2, X, R, rr, C, N, iters, stream
-        fn.argtypes = [p, i64, p, p, p, p, p, p, p, p, i32, i32, i32, p]
+        # Vt, vstride, inst, fm, dinv, B, tol2, X, R, rr, steps, C, N, iters,
+        # stream
+        fn.argtypes = [p, i64, p, p, p, p, p, p, p, p, p, i32, i32, i32, p]
         fn.restype = i32
     lib.ssqp_cg_tile_rows_f32.argtypes = [i32, i32]  # C, N
     lib.ssqp_cg_tile_rows_f32.restype = i32

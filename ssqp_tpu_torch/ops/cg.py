@@ -13,8 +13,11 @@ division floors; any-alive exit checked every 8 steps).
 
 Dispatch is by device and nothing else: a CPU tensor runs
 :func:`cg_rows_reference` (plain PyTorch); a CUDA tensor launches the kernel
-in ``csrc/cg.cu`` or raises. ``LAUNCHES`` counts kernel launches,
-``LAUNCHES_BY_BODY`` the same by the body each took (:func:`body`).
+in ``csrc/cg.cu`` or raises. ``LAUNCHES`` counts kernel launches. Both can
+return the number of steps each row ran (the steps that start with the row
+alive, rr > tol2). While a profiler records, a launch runs inside the span
+``ssqp.cg_kernel`` and adds a record of its shape, body and row steps to
+the registry of ``utils/diagnostics.py``.
 
 The kernel has two bodies, picked by a fixed rule on the arguments alone:
 float32 with one shared V (``V.dim() == 2``) and N <= 1024 runs the
@@ -28,13 +31,13 @@ a launch that fails raises.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from typing import Optional
 
 import torch
 
+from ssqp_tpu_torch.utils.diagnostics import cg_launch, recording, span
+
 LAUNCHES = 0
-LAUNCHES_BY_BODY = Counter()
 
 _CHUNK = 8
 
@@ -49,7 +52,8 @@ def _vp_rows(V, fmr, x, inst):
 
 
 def cg_rows_reference(V, fmr, dinvr, Br, tol2r, iters, X0r,
-                      inst: Optional[torch.Tensor] = None):
+                      inst: Optional[torch.Tensor] = None,
+                      steps: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the fused CG (the semantics of
     ``ssqp_tpu/ops/kkt.py::_vp_cg_xla`` on rows).
 
@@ -60,6 +64,8 @@ def cg_rows_reference(V, fmr, dinvr, Br, tol2r, iters, X0r,
         right-hand sides, warm start.
       tol2r: (C, 1) squared absolute residual tolerance.
       iters: int iteration bound.
+      steps: optional (C,) int32 output, set to the number of steps each
+        row ran (those that start with the row alive).
 
     Returns (X (C, N), rr (C, 1) final squared residual).
     """
@@ -69,11 +75,15 @@ def cg_rows_reference(V, fmr, dinvr, Br, tol2r, iters, X0r,
     p = z
     rz = torch.sum(r * z, dim=1, keepdim=True)
     rr = torch.sum(r * r, dim=1, keepdim=True)
+    if steps is not None:
+        steps.zero_()
     i = 0
     go = bool((rr > tol2r).any())
     while i < iters and go:
         for _ in range(min(_CHUNK, iters - i)):
             alive = rr > tol2r
+            if steps is not None:
+                steps += alive.squeeze(1)
             Ap = _vp_rows(V, fmr, p, inst)
             pAp = torch.sum(p * Ap, dim=1, keepdim=True)
             alpha = torch.where(alive & (pAp > 0),
@@ -125,16 +135,20 @@ def _check(name, t, shape, dtype, device):
 
 
 def cg_padded_rows(V, fmr, dinvr, Br, tol2r, iters, X0r,
-                   inst: Optional[torch.Tensor] = None):
+                   inst: Optional[torch.Tensor] = None,
+                   steps: Optional[torch.Tensor] = None):
     """Fused CG for ``vp(x_c) = b_c`` over flattened system rows.
 
     Same arguments and result as :func:`cg_rows_reference`. A CPU tensor runs
     that plain version; a CUDA tensor launches the kernel (float32 or
     float64, any N, no padding) and raises on anything it cannot take.
+    While a profiler records, the kernel counts each row's steps (into
+    ``steps`` if given) for the registry's launch record.
     """
     global LAUNCHES
     if Br.device.type == "cpu":
-        return cg_rows_reference(V, fmr, dinvr, Br, tol2r, iters, X0r, inst)
+        return cg_rows_reference(V, fmr, dinvr, Br, tol2r, iters, X0r, inst,
+                                 steps)
     if Br.device.type != "cuda":
         raise ValueError(f"cg_padded_rows: unsupported device {Br.device}")
     C, N = Br.shape
@@ -153,10 +167,17 @@ def cg_padded_rows(V, fmr, dinvr, Br, tol2r, iters, X0r,
         if inst is None:
             raise ValueError("cg_padded_rows: a batched V needs inst")
         _check("inst", inst, (C,), torch.int32, dev)
+    if steps is not None:
+        _check("steps", steps, (C,), torch.int32, dev)
     X = X0r.contiguous().clone()
     rr = torch.zeros((C, 1), dtype=dtype, device=dev)
     if C == 0 or N == 0:
+        if steps is not None:
+            steps.zero_()
         return X, rr
+    rec = recording()
+    if rec and steps is None:
+        steps = torch.empty(C, dtype=torch.int32, device=dev)
     # the tensor-core body keeps the residual in device memory
     R = (torch.empty_like(X) if dtype == torch.float32 and V.dim() == 2
          else None)
@@ -170,14 +191,18 @@ def cg_padded_rows(V, fmr, dinvr, Br, tol2r, iters, X0r,
     inst_c = None if inst is None else inst.contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_ptr(Vt), ctypes.c_longlong(vstride), _ptr(inst_c),
-                 *(_ptr(t) for t in args), _ptr(X), _ptr(R), _ptr(rr),
-                 ctypes.c_int(C), ctypes.c_int(N), ctypes.c_int(int(iters)),
-                 ctypes.c_void_p(stream))
+        with span("cg_kernel"):
+            err = fn(_ptr(Vt), ctypes.c_longlong(vstride), _ptr(inst_c),
+                     *(_ptr(t) for t in args), _ptr(X), _ptr(R), _ptr(rr),
+                     _ptr(steps), ctypes.c_int(C), ctypes.c_int(N),
+                     ctypes.c_int(int(iters)), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"cg kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    LAUNCHES_BY_BODY[body(C, N, dtype, V.dim() == 2)] += 1
+    if rec:
+        shared = V.dim() == 2
+        cg_launch(C, N, dtype, shared, body(C, N, dtype, shared),
+                  1 if shared else V.shape[0], steps)
     return X, rr
 
 

@@ -28,21 +28,21 @@ kernel of ``csrc/chol.cu`` or raises. Which of its bodies runs is one rule,
   device memory (the N x N direct solves, n = 512).
 
 There is no fallback between bodies: a refused launch raises.
-``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_SHAPE`` the same
-launches by (B, n, K).
+``LAUNCHES`` counts kernel launches; while a profiler records, each launch
+adds a record of its (B, n, K), dtype and body to the registry of
+``utils/diagnostics.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 
 import torch
 
 from ssqp_tpu_torch.ops.cg import _ptr
+from ssqp_tpu_torch.utils.diagnostics import chol_launch, recording
 
 LAUNCHES = 0
-LAUNCHES_BY_SHAPE = Counter()
 
 
 def chol_solve_reference(A, RHS):
@@ -128,8 +128,9 @@ def chol_solve_batch(A, RHS):
     solve = lib.ssqp_chol_solve_f32 if f32 else lib.ssqp_chol_solve_f64
     with torch.cuda.device(dev):
         # the shared-memory bodies only read A; the other factors in place
+        kind = body(n, K, dtype)
         Aw = A.contiguous()
-        if body(n, K, dtype) == "rank1-device":
+        if kind == "rank1-device":
             Aw = Aw.clone()
         R = RHS.contiguous()
         X = torch.empty_like(R)
@@ -139,5 +140,6 @@ def chol_solve_batch(A, RHS):
     if err != 0:
         raise RuntimeError(f"chol kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    LAUNCHES_BY_SHAPE[(Bn, n, K)] += 1
+    if recording():
+        chol_launch(Bn, n, K, dtype, kind)
     return X

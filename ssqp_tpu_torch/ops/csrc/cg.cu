@@ -72,14 +72,25 @@
 // device-memory traffic (28 bytes per element and step), since a tile's
 // state does not fit on chip beside the accumulators.
 //
+// Both bodies can count the steps each row runs: the steps that start with
+// the row alive (rr > tol2), the plain version's own test, written once at
+// the end to an optional int array (ops/cg.py passes one while a profiler
+// records). The first body counts in shared memory behind a null check.
+// The tensor-core body takes a COUNT template flag instead, because the
+// count cost its largest tiles spill stores: a launch without the array
+// runs the body as it was.
+//
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8), tensor-core body (TR, NT):
 // registers, spill stores/loads in bytes, threads, dynamic shared memory:
 //   (64, 4) 128, 12/36, 512, 203,776  (32, 4) 157, 0/0, 256, 102,912
 //   (16, 4) 147, 0/0, 128, 67,584      (32, 8) 128, 12/36, 512, 204,288
 //   (16, 8) 145, 0/0, 256, 133,888     (16, 16) 128, 0/0, 512, 200,448
-// First body (unchanged): 32-255 registers, spills of up to 144 bytes in
-// some float64 and per-instance-V instantiations; chip_smoke.py prints
-// every kernel's report.
+// With COUNT: (64, 4) and (32, 8) 128, 20/44; (32, 4) 159; the rest as
+// without, and TR more ints of shared memory. First body: 32-255
+// registers, spills of up to 144 bytes in some float64 and per-instance-V
+// instantiations (float64, shared V, 8-row tiles: 128 registers, none;
+// 80 and 56/40 before the count); chip_smoke.py prints every kernel's
+// report.
 //
 // A per-instance V is handled (first body) by a per-row instance index and a
 // V stride. The C entry points return cudaGetLastError() after the launch.
@@ -106,7 +117,8 @@ __device__ __forceinline__ T floor_max(T a, T b) {
 template <typename T, int TR>
 __host__ __device__ constexpr size_t smem_elems(int N) {
   // pm (N x TR) | p, r, ap (TR x N each) | reduction scratch | row scalars
-  return (size_t)4 * TR * N + (size_t)kWarps * 2 * TR + 8 * TR;
+  // (8 TR) | each row's step count (TR ints)
+  return (size_t)4 * TR * N + (size_t)kWarps * 2 * TR + 9 * TR;
 }
 
 // TR consecutive values from shared memory (vector loads where aligned: pm is
@@ -185,7 +197,8 @@ cg_rows_kernel(const T* __restrict__ Vt, long long vstride,
                const int* __restrict__ inst, const T* __restrict__ fm,
                const T* __restrict__ dinv, const T* __restrict__ Bm,
                const T* __restrict__ tol2, T* __restrict__ X,
-               T* __restrict__ rr_out, int C, int N, int iters) {
+               T* __restrict__ rr_out, int* __restrict__ steps_out, int C,
+               int N, int iters) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* pm_s = reinterpret_cast<T*>(smem_raw);   // [N][TR]  fm . p
   T* p_s = pm_s + (size_t)TR * N;              // [TR][N]
@@ -199,6 +212,7 @@ cg_rows_kernel(const T* __restrict__ Vt, long long vstride,
   T* beta_s = alpha_s + TR;                    // [TR]
   T* pap_s = beta_s + TR;                      // [TR] pAp
   T* new_s = pap_s + TR;                       // [2 TR] new r.z, r.r
+  int* nstep_s = reinterpret_cast<int*>(new_s + 2 * TR);  // [TR] steps run
   __shared__ int go_s;
 
   const int tid = threadIdx.x;
@@ -221,7 +235,10 @@ cg_rows_kernel(const T* __restrict__ Vt, long long vstride,
       pm_s[(size_t)j * TR + t] = f * xv;
     }
   }
-  if (tid < TR) tol_s[tid] = (tid < nrows) ? tol2[row0 + tid] : T(0);
+  if (tid < TR) {
+    tol_s[tid] = (tid < nrows) ? tol2[row0 + tid] : T(0);
+    nstep_s[tid] = 0;
+  }
   __syncthreads();
   {
     T part[2 * TR];
@@ -298,6 +315,7 @@ cg_rows_kernel(const T* __restrict__ Vt, long long vstride,
       block_reduce<T, TR>(part, red_s, pap_s);
       if (tid < TR) {
         const bool alive = rr_s[tid] > tol_s[tid];
+        nstep_s[tid] += alive;  // a step that starts with the row alive
         const T pap = pap_s[tid];
         alpha_s[tid] = (alive && pap > T(0))
                            ? rz_s[tid] / floor_max(pap, T(1e-30)) : T(0);
@@ -347,13 +365,16 @@ cg_rows_kernel(const T* __restrict__ Vt, long long vstride,
     i += kChunk;
     go = any_alive();
   }
-  if (tid < nrows) rr_out[row0 + tid] = rr_s[tid];
+  if (tid < nrows) {
+    rr_out[row0 + tid] = rr_s[tid];
+    if (steps_out != nullptr) steps_out[row0 + tid] = nstep_s[tid];
+  }
 }
 
 template <typename T, int TR, bool SHARED>
 cudaError_t launch_tile(const T* Vt, long long vstride, const int* inst,
                         const T* fm, const T* dinv, const T* B, const T* tol2,
-                        T* X, T* rr, int C, int N, int iters,
+                        T* X, T* rr, int* steps, int C, int N, int iters,
                         cudaStream_t stream) {
   const size_t smem = smem_elems<T, TR>(N) * sizeof(T);
   auto kern = cg_rows_kernel<T, TR, SHARED>;
@@ -362,20 +383,21 @@ cudaError_t launch_tile(const T* Vt, long long vstride, const int* inst,
   if (e != cudaSuccess) return e;
   const int grid = (C + TR - 1) / TR;
   kern<<<grid, kThreads, smem, stream>>>(Vt, vstride, inst, fm, dinv, B, tol2,
-                                         X, rr, C, N, iters);
+                                         X, rr, steps, C, N, iters);
   return cudaGetLastError();
 }
 
 template <typename T, int TR>
 cudaError_t launch_shared_or_not(const T* Vt, long long vstride,
                                  const int* inst, const T* fm, const T* dinv,
-                                 const T* B, const T* tol2, T* X, T* rr, int C,
-                                 int N, int iters, cudaStream_t stream) {
+                                 const T* B, const T* tol2, T* X, T* rr,
+                                 int* steps, int C, int N, int iters,
+                                 cudaStream_t stream) {
   if (inst == nullptr)
     return launch_tile<T, TR, true>(Vt, 0, nullptr, fm, dinv, B, tol2, X, rr,
-                                    C, N, iters, stream);
+                                    steps, C, N, iters, stream);
   return launch_tile<T, TR, false>(Vt, vstride, inst, fm, dinv, B, tol2, X,
-                                   rr, C, N, iters, stream);
+                                   rr, steps, C, N, iters, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -401,7 +423,8 @@ struct Tc {
   // the k-slices during the product, the product's result after it
   static constexpr int WORK_FLOATS =
       SLICE_FLOATS > PAIR_FLOATS ? SLICE_FLOATS : PAIR_FLOATS;
-  // Pm [TR][LDA] | p [PAIRS][THREADS] float2 | work | sums [3][WC][TR]
+  // Pm [TR][LDA] | p [PAIRS][THREADS] float2 | work | sums [3][WC][TR],
+  // then, where the steps are counted, each row's count [TR] (ints)
   static constexpr size_t SMEM_FLOATS = (size_t)TR * LDA + PAIR_FLOATS +
                                         WORK_FLOATS + (size_t)3 * WC * TR;
 };
@@ -669,13 +692,14 @@ __device__ __forceinline__ void st_pair(float* base, size_t gi, float2 v,
   if (v1) base[gi + 1] = v.y;
 }
 
-template <int TR, int NT>
+template <int TR, int NT, bool COUNT>
 __global__ void __launch_bounds__(Tc<TR, NT>::THREADS, 1)
 cg_rows_tc_kernel(const float* __restrict__ Vt, const float* __restrict__ fm,
                   const float* __restrict__ dinv, const float* __restrict__ Bm,
                   const float* __restrict__ tol2, float* __restrict__ X,
-                  float* __restrict__ R, float* __restrict__ rr_out, int C,
-                  int N, int iters, int vec16) {
+                  float* __restrict__ R, float* __restrict__ rr_out,
+                  int* __restrict__ steps_out, int C, int N, int iters,
+                  int vec16) {
   using S = Tc<TR, NT>;
   constexpr int MT = S::MT, NW = S::NW, WC = S::WC, THREADS = S::THREADS,
                 LDA = S::LDA;
@@ -685,6 +709,8 @@ cg_rows_tc_kernel(const float* __restrict__ Vt, const float* __restrict__ fm,
   float* work = reinterpret_cast<float*>(p_s) + S::PAIR_FLOATS;
   const float2* y_s = reinterpret_cast<const float2*>(work);
   float* red_s = work + S::WORK_FLOATS;                      // [3][WC][TR]
+  // [TR] steps run (COUNT), each row's kept by the thread writing its rr
+  int* nstep_s = reinterpret_cast<int*>(red_s + 3 * WC * TR);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -729,6 +755,8 @@ cg_rows_tc_kernel(const float* __restrict__ Vt, const float* __restrict__ fm,
     for (int h = 0; h < 2; ++h) {
       const int row = row_of(mt, h);
       tol[mt][h] = row < nrows ? tol2[row0 + row] : 0.f;
+      if constexpr (COUNT)
+        if (wc == 0 && t == 0) nstep_s[row] = 0;
     }
 
   // ---- r = b - vp(x0); z = r . dinv; p = z ----------------------------------
@@ -784,7 +812,11 @@ cg_rows_tc_kernel(const float* __restrict__ Vt, const float* __restrict__ fm,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) alive[mt][h] = rr[mt][h] > tol[mt][h];
+        for (int h = 0; h < 2; ++h) {
+          alive[mt][h] = rr[mt][h] > tol[mt][h];
+          if constexpr (COUNT)
+            if (wc == 0 && t == 0) nstep_s[row_of(mt, h)] += alive[mt][h];
+        }
       // ---- Ap = vp(p) (kept in p_s's neighbour y_s), pAp ----------------
       tc_matvec<TR, NT>(pm_s, work, Vt, N, cp);
       float2* ap_s = reinterpret_cast<float2*>(work);  // Ap, then z
@@ -897,18 +929,22 @@ cg_rows_tc_kernel(const float* __restrict__ Vt, const float* __restrict__ fm,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row_of(mt, h);
-        if (row < nrows) rr_out[row0 + row] = rr[mt][h];
+        if (row < nrows) {
+          rr_out[row0 + row] = rr[mt][h];
+          if constexpr (COUNT) steps_out[row0 + row] = nstep_s[row];
+        }
       }
   }
 }
 
-template <int TR, int NT>
+template <int TR, int NT, bool COUNT>
 cudaError_t launch_tc(const float* Vt, const float* fm, const float* dinv,
                       const float* B, const float* tol2, float* X, float* R,
-                      float* rr, int C, int N, int iters,
+                      float* rr, int* steps, int C, int N, int iters,
                       cudaStream_t stream) {
-  const size_t smem = Tc<TR, NT>::SMEM_FLOATS * sizeof(float);
-  auto kern = cg_rows_tc_kernel<TR, NT>;
+  const size_t smem =
+      (Tc<TR, NT>::SMEM_FLOATS + (COUNT ? TR : 0)) * sizeof(float);
+  auto kern = cg_rows_tc_kernel<TR, NT, COUNT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -918,7 +954,7 @@ cudaError_t launch_tc(const float* Vt, const float* fm, const float* dinv,
   const int vec16 = N % 4 == 0 && aligned(Vt, 16);
   const int grid = (C + TR - 1) / TR;
   kern<<<grid, Tc<TR, NT>::THREADS, smem, stream>>>(
-      Vt, fm, dinv, B, tol2, X, R, rr, C, N, iters, vec16);
+      Vt, fm, dinv, B, tol2, X, R, rr, steps, C, N, iters, vec16);
   return cudaGetLastError();
 }
 
@@ -935,14 +971,16 @@ void tc_tile(int C, int N, int sms, int* tr, int* nt) {
 
 cudaError_t run_tc(const float* Vt, const float* fm, const float* dinv,
                    const float* B, const float* tol2, float* X, float* R,
-                   float* rr, int C, int N, int iters, int sms,
+                   float* rr, int* steps, int C, int N, int iters, int sms,
                    cudaStream_t stream) {
   int tr = 0, nt = 0;
   tc_tile(C, N, sms, &tr, &nt);
 #define SSQP_TC(TRV, NTV)                                                  \
   if (tr == TRV && nt == NTV)                                              \
-    return launch_tc<TRV, NTV>(Vt, fm, dinv, B, tol2, X, R, rr, C, N,     \
-                               iters, stream);
+    return steps ? launch_tc<TRV, NTV, true>(Vt, fm, dinv, B, tol2, X, R,  \
+                                             rr, steps, C, N, iters, stream) \
+                 : launch_tc<TRV, NTV, false>(Vt, fm, dinv, B, tol2, X, R, \
+                                              rr, steps, C, N, iters, stream);
   SSQP_TC(64, 4) SSQP_TC(32, 4) SSQP_TC(16, 4)
   SSQP_TC(32, 8) SSQP_TC(16, 8)
   SSQP_TC(16, 16)
@@ -952,8 +990,8 @@ cudaError_t run_tc(const float* Vt, const float* fm, const float* dinv,
 
 template <typename T>
 int run_cg(const T* Vt, long long vstride, const int* inst, const T* fm,
-           const T* dinv, const T* B, const T* tol2, T* X, T* R, T* rr, int C,
-           int N, int iters, void* stream_ptr) {
+           const T* dinv, const T* B, const T* tol2, T* X, T* R, T* rr,
+           int* steps, int C, int N, int iters, void* stream_ptr) {
   if (C <= 0) return 0;
   if (N <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -965,8 +1003,8 @@ int run_cg(const T* Vt, long long vstride, const int* inst, const T* fm,
       if (R == nullptr) return (int)cudaErrorInvalidValue;
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
       if (e != cudaSuccess) return (int)e;
-      return (int)run_tc(Vt, fm, dinv, B, tol2, X, R, rr, C, N, iters, sms,
-                         stream);
+      return (int)run_tc(Vt, fm, dinv, B, tol2, X, R, rr, steps, C, N, iters,
+                         sms, stream);
     }
   }
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -977,7 +1015,8 @@ int run_cg(const T* Vt, long long vstride, const int* inst, const T* fm,
 #define SSQP_TRY_TILE(TRV)                                                   \
   if (smem_elems<T, TRV>(N) * sizeof(T) <= lim)                              \
     return (int)launch_shared_or_not<T, TRV>(Vt, vstride, inst, fm, dinv, B, \
-                                             tol2, X, rr, C, N, iters, stream);
+                                             tol2, X, rr, steps, C, N, iters,  \
+                                             stream);
   SSQP_TRY_TILE(16)
   SSQP_TRY_TILE(8)
   SSQP_TRY_TILE(4)
@@ -1007,21 +1046,23 @@ int ssqp_cg_tile_rows_f32(int C, int N) {
 }
 
 // R: (C, N) scratch for the residual, used by the tensor-core body (float32,
-// shared V, N <= 1024) and ignored otherwise (may then be null).
+// shared V, N <= 1024) and ignored otherwise (may then be null). steps: (C,)
+// ints, each row's count of steps that started with the row alive (rr >
+// tol2), written once at the end in both bodies; null writes nothing.
 int ssqp_cg_rows_f32(const float* Vt, long long vstride, const int* inst,
                      const float* fm, const float* dinv, const float* B,
-                     const float* tol2, float* X, float* R, float* rr, int C,
-                     int N, int iters, void* stream) {
-  return run_cg<float>(Vt, vstride, inst, fm, dinv, B, tol2, X, R, rr, C, N,
-                       iters, stream);
+                     const float* tol2, float* X, float* R, float* rr,
+                     int* steps, int C, int N, int iters, void* stream) {
+  return run_cg<float>(Vt, vstride, inst, fm, dinv, B, tol2, X, R, rr, steps,
+                       C, N, iters, stream);
 }
 
 int ssqp_cg_rows_f64(const double* Vt, long long vstride, const int* inst,
                      const double* fm, const double* dinv, const double* B,
                      const double* tol2, double* X, double* R, double* rr,
-                     int C, int N, int iters, void* stream) {
-  return run_cg<double>(Vt, vstride, inst, fm, dinv, B, tol2, X, R, rr, C, N,
-                        iters, stream);
+                     int* steps, int C, int N, int iters, void* stream) {
+  return run_cg<double>(Vt, vstride, inst, fm, dinv, B, tol2, X, R, rr, steps,
+                        C, N, iters, stream);
 }
 
 }  // extern "C"

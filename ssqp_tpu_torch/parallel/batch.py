@@ -31,6 +31,8 @@ import torch
 from ssqp_tpu_torch.ops.bmat import mtv, mv, stack_rows
 from ssqp_tpu_torch.types import (
     LP, LP_FIELDS, QP, QP_FIELDS, Result, Settings, as_torch_dtype)
+from ssqp_tpu_torch.utils.diagnostics import (
+    count, count_device, recording, span)
 from ssqp_tpu_torch.utils.precision import highest_matmul
 
 
@@ -112,7 +114,8 @@ def solve_qp_batch_auto(Q: QP, settings: Settings = None, shared: tuple = (),
     Routes: the tail refinement over whichever protocol, else
     :func:`solve_qp_batch_waves`, :func:`solve_qp_batch_compact` or
     :func:`solve_qp_batch`. ``None`` means "apply the rule"; explicit values
-    override it."""
+    override it. The route taken runs inside the span ``ssqp.route.<tail|
+    waves|compact|plain>``."""
     settings = settings or Settings.for_dtype(Q.V.dtype)
     B = Q.batch_size
     if B is None:
@@ -124,15 +127,19 @@ def solve_qp_batch_auto(Q: QP, settings: Settings = None, shared: tuple = (),
         tail = 4 if (Q.N >= 512 and Q.V.dtype != torch.float64) else 0
     compact = (2, 4, 8) if (waves == 0 and B >= 4096) else 0
     if tail > 0:
-        return solve_qp_batch_tail_refined(Q, settings, shared, waves=waves,
-                                           tail=tail, iters=1,
-                                           compact=compact)
+        with span("route.tail"):
+            return solve_qp_batch_tail_refined(Q, settings, shared,
+                                               waves=waves, tail=tail,
+                                               iters=1, compact=compact)
     if waves > 1:
-        return solve_qp_batch_waves(Q, settings, shared, waves=waves)
+        with span("route.waves"):
+            return solve_qp_batch_waves(Q, settings, shared, waves=waves)
     if compact:
-        return solve_qp_batch_compact(Q, settings, shared=shared,
-                                      compact=compact)
-    return solve_qp_batch(Q, settings, shared=shared)
+        with span("route.compact"):
+            return solve_qp_batch_compact(Q, settings, shared=shared,
+                                          compact=compact)
+    with span("route.plain"):
+        return solve_qp_batch(Q, settings, shared=shared)
 
 
 @highest_matmul
@@ -154,7 +161,10 @@ def solve_qp_batch_tail_refined(Q: QP, settings: Settings, shared: tuple = (),
     passes ran. A refined instance leaves the selection. ``resid_bound=0.0``
     refines the top ``B // tail`` unconditionally. Statuses and duals are
     the search's; x keeps the problem's dtype. One host synchronisation per
-    pass."""
+    pass. Each pass runs inside the span ``ssqp.tail_pass``; the counters
+    ``tail.refined`` (K per pass) and ``tail.accepted`` (the refined
+    instances whose point the pass changed: those whose refined point the
+    acceptance guard kept) record it."""
     from ssqp_tpu_torch.solvers.refine import refine_result_cg
 
     settings = settings_for_shared(settings, shared)
@@ -175,13 +185,18 @@ def solve_qp_batch_tail_refined(Q: QP, settings: Settings, shared: tuple = (),
     x = res.x.clone()
     p = 0
     while p < max_passes and bool((rs > resid_bound).any()):
-        idx = torch.argsort(-rs, stable=True)[:K]
-        rk = Result(x[idx], res.S[idx], res.status[idx])
-        rr = refine_result_cg(Q.take(idx), rk, settings, iters,
-                              with_duals=False, exact_sweeps=True)
-        x[idx] = rr.x.to(x.dtype)
-        rs[idx] = -float("inf")
-        p += 1
+        with span("tail_pass"):
+            count("tail.refined", K)
+            idx = torch.argsort(-rs, stable=True)[:K]
+            rk = Result(x[idx], res.S[idx], res.status[idx])
+            rr = refine_result_cg(Q.take(idx), rk, settings, iters,
+                                  with_duals=False, exact_sweeps=True)
+            if recording():
+                count_device("tail.accepted",
+                             (rr.x != rk.x.to(rr.x.dtype)).any(dim=1).sum())
+            x[idx] = rr.x.to(x.dtype)
+            rs[idx] = -float("inf")
+            p += 1
     return Result(x, res.S, res.status, res.lam, res.gamma)
 
 
@@ -308,7 +323,10 @@ def _rescue_and_attach(Q: QP, merged: Result, settings: Settings,
     on those instances only, gathered with ``Q.take``. One host check of
     ``need.any()`` stands in for the JAX package's batch-level ``lax.cond``.
     An instance is written back only where its rescue solved. Then one
-    dual attachment over the whole batch."""
+    dual attachment over the whole batch. The rescue runs inside the span
+    ``ssqp.rescue``; ``phase1.fallback_instances``, ``rescue.forced`` and
+    ``rescue.fixed`` count its instances, those ``force`` marked and those
+    it solved."""
     from ssqp_tpu_torch.solvers.phase1 import init_qp_traced
     from ssqp_tpu_torch.solvers.ssqp import (
         _attach_duals, _where, solve_qp_warm2)
@@ -318,16 +336,22 @@ def _rescue_and_attach(Q: QP, merged: Result, settings: Settings,
         need = need | force
     x, S, status = merged.x, merged.S, merged.status.to(torch.int32)
     if bool(need.any()):
-        idx = need.nonzero().squeeze(1)
-        Qn = Q.take(idx)
-        x0, Sx0, Se0, st1 = init_qp_traced(Qn, settings)
-        rr = solve_qp_warm2(Qn, Sx0, Se0, x0, settings, pre_status=st1,
-                            with_duals=False)
-        fix = rr.status > 0
-        x, S, status = x.clone(), S.clone(), status.clone()
-        x[idx] = _where(fix, rr.x, x[idx])
-        S[idx] = _where(fix, rr.S, S[idx])
-        status[idx] = torch.where(fix, rr.status, status[idx])
+        with span("rescue"):
+            idx = need.nonzero().squeeze(1)
+            count("phase1.fallback_instances", idx.numel())
+            Qn = Q.take(idx)
+            x0, Sx0, Se0, st1 = init_qp_traced(Qn, settings)
+            rr = solve_qp_warm2(Qn, Sx0, Se0, x0, settings, pre_status=st1,
+                                with_duals=False)
+            fix = rr.status > 0
+            if recording():
+                if force is not None:
+                    count_device("rescue.forced", force.sum())
+                count_device("rescue.fixed", fix.sum())
+            x, S, status = x.clone(), S.clone(), status.clone()
+            x[idx] = _where(fix, rr.x, x[idx])
+            S[idx] = _where(fix, rr.S, S[idx])
+            status[idx] = torch.where(fix, rr.status, status[idx])
     return _attach_duals(Q, Result(x, S, status), settings)
 
 

@@ -35,6 +35,7 @@ from ssqp_tpu_torch.ops.masked_gj import select_purge
 from ssqp_tpu_torch.solvers.ssqp import _primal_violation, _rows, _where
 from ssqp_tpu_torch.types import (
     DN, EO, IN, QP, UP, QP_FIELDS, Result, Settings, as_torch_dtype)
+from ssqp_tpu_torch.utils.diagnostics import span
 from ssqp_tpu_torch.utils.precision import highest_matmul
 
 HI = torch.float64  # the residual dtype
@@ -280,14 +281,15 @@ def _search_and_refine(Q: QP, Qs: QP, s_search: Settings, settings: Settings,
     """Search on the search copy ``Qs`` (duals not attached), then refine
     against ``Q``; both single problems, run as a batch of one. The JAX
     package fuses the two into one compiled dispatch; here they are one
-    plain function."""
+    plain function. The refinement runs inside the span ``ssqp.refine``."""
     from ssqp_tpu_torch.solvers.ssqp import solve_qp_auto_core
 
     refine = refine_result_cg if method == "cg" else refine_result
     one = lambda P: dataclasses.replace(P, q=P.q.unsqueeze(0))
     res = solve_qp_auto_core(one(Qs), s_search)
     res = Result(res.x.to(Q.V.dtype), res.S, res.status)
-    r = refine(one(Q), res, settings, iters)
+    with span("refine"):
+        r = refine(one(Q), res, settings, iters)
     return Result(r.x[0], r.S[0], r.status[0], r.lam[0], r.gamma[0])
 
 

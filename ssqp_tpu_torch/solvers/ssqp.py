@@ -34,6 +34,7 @@ from ssqp_tpu_torch.ops.masked_gj import select_purge
 from ssqp_tpu_torch.types import (
     DN, EO, IN, OE, QP, UP, Result, Settings, batch_of,
 )
+from ssqp_tpu_torch.utils.diagnostics import count, span
 from ssqp_tpu_torch.utils.precision import highest_matmul
 
 _BIG = float("inf")
@@ -296,15 +297,17 @@ def solve_qp_loop(Q: QP, Sx0, Se0, x0, settings: Settings, pre_status=None,
     sol = (torch.zeros((Bn, N, 1 + R), dtype=dtype, device=dev) if sol0 is None
            else sol0.to(dtype).clone())
     while True:
-        run = (~done & (it < max_it)).nonzero().squeeze(1)
-        if run.numel() == 0:
-            break
-        it[run] += 1
-        z_n, Sx_n, Se_n, done_n, status_n, sol_n = _loop_body(
-            Q.take(run), settings, mf, cg_it, z[run], Sx[run], Se[run],
-            it[run], sol[run])
-        z[run], Sx[run], Se[run] = z_n, Sx_n, Se_n
-        done[run], status[run], sol[run] = done_n, status_n, sol_n
+        with span("s_loop_trip"):
+            run = (~done & (it < max_it)).nonzero().squeeze(1)
+            if run.numel() == 0:
+                break
+            count("s_loop.instance_iters", run.numel())
+            it[run] += 1
+            z_n, Sx_n, Se_n, done_n, status_n, sol_n = _loop_body(
+                Q.take(run), settings, mf, cg_it, z[run], Sx[run], Se[run],
+                it[run], sol[run])
+            z[run], Sx[run], Se[run] = z_n, Sx_n, Se_n
+            done[run], status[run], sol[run] = done_n, status_n, sol_n
     status = torch.where(done, status, torch.full_like(status, -max_it))
     S = torch.cat([Sx, Se], dim=1) if J > 0 else Sx
     res = Result(z, S, status)
@@ -333,30 +336,33 @@ def _attach_duals(Q: QP, res: Result, settings: Optional[Settings] = None):
     labeled active set (accepted only if finite, primally feasible and not
     worse) and attach least-squares dual certificates. Failed instances get
     zero duals."""
-    N, M, J = Q.N, Q.M, Q.J
-    dtype = Q.V.dtype
-    AG, bg = _rows(Q)
-    Bn = res.x.shape[0]
-    Sx = res.S[:, :N]
-    free = Sx == IN
-    act = torch.ones((Bn, M), dtype=torch.bool, device=Q.device)
-    if J > 0:
-        act = torch.cat([act, res.S[:, N:] == EO], dim=1)
-    x = res.x
-    ok = res.status > 0
-    if settings is not None:
-        ridge = 100.0 * torch.finfo(dtype).eps
-        rp = kkt_solve_cg(Q.V, Q.q, AG, bg, x, free, act, settings.cg_iters,
-                          settings.cg_rtol, ridge=ridge)
-        xp = torch.clamp(rp.alpha, min=Q.d, max=Q.u)
-        accept = (ok & torch.isfinite(xp).all(dim=1)
-                  & (_primal_violation(Q, xp) <= 10.0 * settings.tol)
-                  & (_objective(Q, xp) <= _objective(Q, x) + settings.tol))
-        x = _where(accept, xp, x)
-    lam, gamma = recover_duals(Q.V, Q.q, AG, x, free, act)
-    lam = _where(ok, lam, torch.zeros_like(lam))
-    gamma = _where(ok, gamma, torch.zeros_like(gamma))
-    return Result(x, res.S, res.status, lam, gamma)
+    with span("attach_duals"):
+        N, M, J = Q.N, Q.M, Q.J
+        dtype = Q.V.dtype
+        AG, bg = _rows(Q)
+        Bn = res.x.shape[0]
+        Sx = res.S[:, :N]
+        free = Sx == IN
+        act = torch.ones((Bn, M), dtype=torch.bool, device=Q.device)
+        if J > 0:
+            act = torch.cat([act, res.S[:, N:] == EO], dim=1)
+        x = res.x
+        ok = res.status > 0
+        if settings is not None:
+            ridge = 100.0 * torch.finfo(dtype).eps
+            rp = kkt_solve_cg(Q.V, Q.q, AG, bg, x, free, act,
+                              settings.cg_iters, settings.cg_rtol,
+                              ridge=ridge)
+            xp = torch.clamp(rp.alpha, min=Q.d, max=Q.u)
+            accept = (ok & torch.isfinite(xp).all(dim=1)
+                      & (_primal_violation(Q, xp) <= 10.0 * settings.tol)
+                      & (_objective(Q, xp)
+                         <= _objective(Q, x) + settings.tol))
+            x = _where(accept, xp, x)
+        lam, gamma = recover_duals(Q.V, Q.q, AG, x, free, act)
+        lam = _where(ok, lam, torch.zeros_like(lam))
+        gamma = _where(ok, gamma, torch.zeros_like(gamma))
+        return Result(x, res.S, res.status, lam, gamma)
 
 
 @highest_matmul
@@ -590,22 +596,27 @@ def _guess_start(Q: QP, settings: Settings, rounds: int = 12):
         W, cheb_bounds = _pdas_shared_W(Q.V, settings)
         if settings.pdas_pcg:
             W_loop = W
-        it, Sx, Se, z, sol = _pdas_round1(Q, settings, W, Sx, Se, z, sol)
+        with span("pdas_round1"):
+            count("pdas.instance_rounds", Bn)
+            it, Sx, Se, z, sol = _pdas_round1(Q, settings, W, Sx, Se, z,
+                                              sol)
     if settings.pdas_waterfill and M == 1 and J == 0:
         okw, Sxw, zw = _waterfill_seed(Q)
         Sx = _where(okw, Sxw, Sx)
         z = _where(okw, zw, z)
     active = it < rounds
     while True:
-        idx = active.nonzero().squeeze(1)
-        if idx.numel() == 0:
-            break
-        Sxn, Sen, zn, soln, ch = _pdas_round(Q.take(idx), settings, Sx[idx],
-                                             Se[idx], sol[idx], W_loop,
-                                             cheb_bounds)
-        Sx[idx], Se[idx], z[idx], sol[idx] = Sxn, Sen, zn, soln
-        it[idx] += 1
-        active[idx] = ch & (it[idx] < rounds)
+        with span("pdas_round"):
+            idx = active.nonzero().squeeze(1)
+            if idx.numel() == 0:
+                break
+            count("pdas.instance_rounds", idx.numel())
+            Sxn, Sen, zn, soln, ch = _pdas_round(
+                Q.take(idx), settings, Sx[idx], Se[idx], sol[idx], W_loop,
+                cheb_bounds)
+            Sx[idx], Se[idx], z[idx], sol[idx] = Sxn, Sen, zn, soln
+            it[idx] += 1
+            active[idx] = ch & (it[idx] < rounds)
     return z, Sx, Se, sol
 
 
@@ -661,11 +672,15 @@ def solve_qp_auto_core(Q: QP, settings: Settings,
     x, S, status = rg.x, rg.S, rg.status
     bad = (~okg).nonzero().squeeze(1)
     if bad.numel() > 0:
-        Qb = Q.take(bad)
-        x0, Sx0, Se0, st1 = init_qp_traced(Qb, settings_lp or settings)
-        r2, sol2 = solve_qp_warm2(Qb, Sx0, Se0, x0, settings, pre_status=st1,
-                                  with_duals=False, return_sol=True)
-        x[bad], S[bad], status[bad], sol[bad] = r2.x, r2.S, r2.status, sol2
+        with span("phase1_fallback"):
+            count("phase1.fallback_instances", bad.numel())
+            Qb = Q.take(bad)
+            x0, Sx0, Se0, st1 = init_qp_traced(Qb, settings_lp or settings)
+            r2, sol2 = solve_qp_warm2(Qb, Sx0, Se0, x0, settings,
+                                      pre_status=st1, with_duals=False,
+                                      return_sol=True)
+            x[bad], S[bad], status[bad], sol[bad] = (r2.x, r2.S, r2.status,
+                                                     sol2)
     r = Result(x, S, status)
     return (r, sol) if return_sol else r
 

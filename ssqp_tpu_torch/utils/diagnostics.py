@@ -1,9 +1,21 @@
-"""Observability: batched KKT diagnostics and a profiling helper (PyTorch).
+"""Observability: batched KKT diagnostics, the program's spans and
+counters, and a profiling helper (PyTorch).
 
 Counterpart of ``ssqp_tpu/utils/diagnostics.py``. :func:`kkt_report`
 computes per-instance optimality and feasibility measures for a whole batch
 as device tensors (nothing forces a host sync), and :func:`trace` wraps a
 region in a ``torch.profiler`` trace written as a Chrome trace file.
+
+Spans and counters record only while a ``torch.profiler`` session records
+(:func:`recording`, the profiler's own switch); there is no other switch.
+Otherwise a site costs that one check. A span (:func:`span`) is a profiler
+range named ``ssqp.<name>`` on the profiler's clock, and counts its own
+openings in the registry under ``<name>``. A counter adds a value the host
+already holds (:func:`count`) or a device tensor (:func:`count_device`),
+summed on the device and read once by :func:`counters`: no counter adds a
+host synchronisation. The CG and Cholesky kernels add one record per
+launch shape (:func:`cg_launch`, :func:`chol_launch`). :func:`trace` clears
+the registry when it starts; so does :func:`clear_counters`.
 """
 
 from __future__ import annotations
@@ -19,6 +31,91 @@ import torch
 from ssqp_tpu_torch.ops.bmat import mtv, mv, stack_rows
 from ssqp_tpu_torch.types import DN, EO, IN, QP, UP, Result
 from ssqp_tpu_torch.utils.precision import highest_matmul
+
+
+# ---- spans and counters ----------------------------------------------------
+
+# True only while a torch.profiler session records (a C call, ~30-70 ns)
+recording = torch._C._autograd._profiler_enabled
+# A function-scope range: like record_function's on the host, but it adds no
+# user annotation to the device's timeline, where a trace reduction would
+# count it as device work.
+_Range = torch._C._profiler._RecordFunctionFast
+SPAN_PREFIX = "ssqp."
+
+_counts = {}  # name -> int (host) or 0-dim tensor (device)
+_cg = {}  # (C, N, dtype, shared V, body) -> [launches, V matrices, steps]
+_chol = {}  # (B, n, K, dtype, body) -> launches
+_OFF = contextlib.nullcontext()  # what a span site enters while off
+
+
+def span(name: str):
+    """A ``ssqp.<name>`` profiler range around a ``with`` block, counted
+    under ``<name>``, while a profiler records; otherwise a shared no-op."""
+    if not recording():
+        return _OFF
+    _counts[name] = _counts.get(name, 0) + 1
+    return _Range(SPAN_PREFIX + name)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n``, a value the host holds, to counter ``name`` while a
+    profiler records."""
+    if recording():
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def count_device(name: str, t: torch.Tensor) -> None:
+    """Add the 0-dim device tensor ``t`` to counter ``name`` on the device.
+    Callers compute ``t`` only under :func:`recording`."""
+    prev = _counts.get(name)
+    _counts[name] = t if prev is None else prev + t
+
+
+def cg_launch(C: int, N: int, dtype, shared: bool, body: str,
+              matrices: int, steps: torch.Tensor) -> None:
+    """Record one CG kernel launch: its rows, width, dtype, V (shared or
+    ``matrices`` per-instance) and body, and the steps its rows ran
+    (``steps`` (C,) int32 on the device, summed there)."""
+    key = (C, N, str(dtype).replace("torch.", ""), shared, body)
+    s = steps.sum(dtype=torch.int64)
+    rec = _cg.get(key)
+    if rec is None:
+        _cg[key] = [1, matrices, s]
+    else:
+        rec[0] += 1
+        rec[1] += matrices
+        rec[2] = rec[2] + s
+
+
+def chol_launch(B: int, n: int, K: int, dtype, body: str) -> None:
+    """Record one Cholesky kernel launch by shape, dtype and body."""
+    key = (B, n, K, str(dtype).replace("torch.", ""), body)
+    _chol[key] = _chol.get(key, 0) + 1
+
+
+def counters() -> dict:
+    """A copy of the registry, device values read (one synchronisation,
+    here and not in the program): counter and span names to numbers;
+    ``"cg.launches"`` maps (C, N, dtype, shared V, body) to ``{"launches",
+    "matrices", "row_steps"}``, ``"chol.launches"`` maps (B, n, K, dtype,
+    body) to launches, each present once a launch was recorded."""
+    out = {k: int(v) if isinstance(v, torch.Tensor) else v
+           for k, v in _counts.items()}
+    if _cg:
+        out["cg.launches"] = {
+            k: {"launches": n, "matrices": m, "row_steps": int(s)}
+            for k, (n, m, s) in _cg.items()}
+    if _chol:
+        out["chol.launches"] = dict(_chol)
+    return out
+
+
+def clear_counters() -> None:
+    """Empty the registry."""
+    _counts.clear()
+    _cg.clear()
+    _chol.clear()
 
 
 class KKTReport(NamedTuple):
@@ -115,7 +212,9 @@ def kkt_report(Q: QP, res: Result, batched: bool = False) -> KKTReport:
 def trace(logdir: str):
     """Profile a region with ``torch.profiler`` (CPU activity, plus CUDA
     activity when a card is present) and write a Chrome trace file into
-    ``logdir``:
+    ``logdir``; the program's ``ssqp.`` spans are in it, and the registry,
+    cleared when the region starts, holds the region's counters
+    (:func:`counters`):
 
     >>> with trace("traces/ssqp"):
     ...     res = solve_qp_batch(Qb, settings)
@@ -124,6 +223,7 @@ def trace(logdir: str):
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)
+    clear_counters()
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)

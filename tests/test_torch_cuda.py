@@ -49,7 +49,10 @@ Tolerances:
     on the CPU: float64 S equal and x within 1e-9, float32 objective
     within 1e-5 relative; the Chebyshev interval on the card encloses the
     float64 spectrum; the CG kernel at N = 1024 (tensor-core body) and
-    1025 (first body) within 5e-4 of the plain version.
+    1025 (first body) within 5e-4 of the plain version;
+  * the steps each CG row ran, kernel against the plain version on the same
+    tensors: at least 99% of rows within one step and the sums within 2%
+    (rounding can move a row's freeze by a step).
 """
 
 import dataclasses
@@ -57,11 +60,13 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from ssqp_tpu_torch import Settings, make_qp
 from ssqp_tpu_torch.ops import cg, chol
 from ssqp_tpu_torch.parallel import batch as tb
 from ssqp_tpu_torch.solvers import ssqp as ts
+from ssqp_tpu_torch.utils import diagnostics
 
 pytestmark = pytest.mark.cuda
 
@@ -349,10 +354,13 @@ def test_blocked_chol_panel_edges(dev, n, kcol):
     A = torch.tensor(_spd(rng, 2, n), dtype=torch.float32, device=dev)
     R = torch.tensor(rng.standard_normal((2, n, K)), dtype=torch.float32,
                      device=dev)
-    before, by_shape = chol.LAUNCHES, chol.LAUNCHES_BY_SHAPE[(2, n, K)]
-    Xk = chol.chol_solve_batch(A, R)
+    before = chol.LAUNCHES
+    diagnostics.clear_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        Xk = chol.chol_solve_batch(A, R)
     assert chol.LAUNCHES == before + 1
-    assert chol.LAUNCHES_BY_SHAPE[(2, n, K)] == by_shape + 1
+    assert diagnostics.counters()["chol.launches"] == {
+        (2, n, K, "float32", "blocked"): 1}
     _chol_check(A, R, Xk)
 
 
@@ -717,9 +725,11 @@ def test_chol_kernel_at_the_lp_shape(dev, B):
     R = torch.tensor(rng.standard_normal((B, 25, 1)), dtype=torch.float32,
                      device=dev)
     assert chol.body(25, 1) == "blocked"
-    before = chol.LAUNCHES_BY_SHAPE[(B, 25, 1)]
-    Xk = chol.chol_solve_batch(A, R)
-    assert chol.LAUNCHES_BY_SHAPE[(B, 25, 1)] == before + 1
+    diagnostics.clear_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        Xk = chol.chol_solve_batch(A, R)
+    assert diagnostics.counters()["chol.launches"] == {
+        (B, 25, 1, "float32", "blocked"): 1}
     Xp = chol.chol_solve_reference(A, R)
     torch.cuda.synchronize()
     assert float((Xk - Xp).abs().max()) <= 1e-4 * float(Xp.abs().max())
@@ -1033,8 +1043,47 @@ def test_cg_body_switch_at_1024(dev):
     for N, want in ((1024, "tensor-core"), (1025, "cuda-core")):
         args = _cg_problem(3, N, 2, 8, torch.float32, False)
         X0 = torch.zeros_like(args[2])
-        cg.LAUNCHES_BY_BODY.clear()
-        Xk, _, Xp, _ = _both(args, 64, X0, dev)
-        assert dict(cg.LAUNCHES_BY_BODY) == {want: 1}
+        diagnostics.clear_counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            Xk, _, Xp, _ = _both(args, 64, X0, dev)
+        launches = diagnostics.counters()["cg.launches"]
+        assert {k[4]: r["launches"] for k, r in launches.items()} == {want: 1}
         assert (cg.tile_rows(16, N) > 0) == (want == "tensor-core")
         np.testing.assert_allclose(Xk, Xp, rtol=0, atol=5e-4)
+
+
+# ---- the steps each CG row ran ---------------------------------------------
+
+
+@pytest.mark.parametrize("shape", ["a", "f"])
+def test_kernel_row_steps_match_the_plain_version(dev, shape):
+    """Each row's step count (the steps that start with the row alive)
+    from the kernel against cg_rows_reference on the same CUDA tensors, at
+    PERF.md's CG shapes (a) C = 4096, N = 256, float32 (tensor-core body)
+    and (f) C = 512, N = 1024, float64 (first body), 64 steps, tolerances
+    spread over 1e-5..1e-1 (float64: 1e-12..1e-4) so that rows freeze on
+    different steps. Under a profiler the launch's record in the registry
+    holds its shape, body and the same sum."""
+    C, N, dtype, lo, hi, kind = (
+        (4096, 256, torch.float32, -5, -1, "tensor-core") if shape == "a"
+        else (512, 1024, torch.float64, -12, -4, "cuda-core"))
+    V, FM, B, DINV, TOL2 = _cg_problem(17, N, 1, C, torch.float64)
+    Br, X0r, fmr, dinvr, _ = cg._rows(B, FM, DINV, TOL2, torch.zeros_like(B))
+    rtol = torch.tensor(10.0 ** np.random.default_rng(C).uniform(
+        lo, hi, (C, 1)))
+    tol2r = rtol * rtol * (Br * Br).sum(1, keepdim=True)
+    V, fmr, dinvr, Br, tol2r, X0r = (t.to(dev, dtype) for t in
+                                     (V, fmr, dinvr, Br, tol2r, X0r))
+    sk = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    sp = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    cg.cg_padded_rows(V, fmr, dinvr, Br, tol2r, 64, X0r, steps=sk)
+    cg.cg_rows_reference(V, fmr, dinvr, Br, tol2r, 64, X0r, steps=sp)
+    assert 0 < int(sp.min()) and int(sp.max()) > int(sp.min())
+    assert float(((sk - sp).abs() <= 1).double().mean()) >= 0.99
+    assert abs(int(sk.sum()) - int(sp.sum())) <= 0.02 * int(sp.sum())
+    diagnostics.clear_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        cg.cg_padded_rows(V, fmr, dinvr, Br, tol2r, 64, X0r)
+    assert diagnostics.counters()["cg.launches"] == {
+        (C, N, str(dtype)[6:], True, kind):
+            {"launches": 1, "matrices": 1, "row_steps": int(sk.sum())}}
