@@ -16,8 +16,11 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   the kernel's, the plain version's and one float32
                   matmul's times at the five timed shapes (config 8's at
                   N=1024 among them) with the FFMA- and 3xTF32-route
-                  bounds, and the float64 body's at N=1024 with the DMMA
-                  bound (the card's higher float64 rate; DFMA beside it);
+                  bounds, and the float64 bodies' at N=1024 and at config
+                  4's widths (N=512, 111 rows an instance: the DMMA body
+                  where the rule takes it) with the DMMA bound (the card's
+                  higher float64 rate; DFMA beside it) and the first
+                  body's times kept in PERF.md §6;
   4. chol       — the batched Cholesky kernel against its plain version on
                   the card (f32, at the ineq path's and the LP path's
                   shapes, the blocked body's panel edges, the direct N x N
@@ -240,6 +243,23 @@ CG_TIMED = (("frontier C=4096", 2 * B_AUTO, N_MAIN, 64),
 # tensor would correct at this shape in float64)
 CG_TIMED_F64 = (("config8 audit C=512 f64", 2 * C8_AUDIT, 1024, 64),
                 ("config8 tail shape C=4096 f64", 2 * C8_B // 4, 1024, 64))
+# Config 4's float64 launches (111 rows an instance at N=512): the batch of
+# 256 at 64 steps and at float64's 128-step CG budget, a quarter batch, one
+# instance (the single-problem search's rows)
+K_C4 = 1 + M_INEQ + J_INEQ
+CG_TIMED_C4 = (("config4 C=28416 f64", B_INEQ * K_C4, N_INEQ, 64),
+               ("config4 C=28416 f64 128", B_INEQ * K_C4, N_INEQ, 128),
+               ("config4 C=7104 f64", B_INEQ // 4 * K_C4, N_INEQ, 64),
+               ("config4 single C=111 f64", K_C4, N_INEQ, 64))
+# The first body's times at these shapes as PERF.md §6 keeps them (ms, the
+# midpoint of the runs there; the same tol2 = 0 launches on an H100 80GB
+# HBM3 at 700 W), printed beside this run's
+FIRST_BODY_MS = {"config8 audit C=512 f64": 16.16,
+                 "config8 tail shape C=4096 f64": 121.05,
+                 "config4 C=28416 f64": 115.1,
+                 "config4 C=28416 f64 128": 226.3,
+                 "config4 C=7104 f64": 29.5,
+                 "config4 single C=111 f64": 4.27}
 
 
 def phase_kernel(torch):
@@ -269,9 +289,12 @@ def phase_kernel(torch):
     c7_rows = [("N=14 K=6 batch=1 shared V", 14, 6, 1, False, 200),
                ("N=263 K=3 batch=1 shared V", 263, 3, 1, False, 200)]
     main_rows += c7_rows
-    # config 8's float64 audit at N=1024, and config 7's float64 references
+    # config 8's float64 audit at N=1024, config 7's float64 references and
+    # config 4's float64 rows (the batch, a quarter of it, one instance)
     f64_rows = [(f"N=1024 K=2 batch={C8_AUDIT} shared V", 1024, 2, C8_AUDIT,
-                 False, 64)] + c7_rows
+                 False, 64)] + c7_rows + [
+        (f"N={N_INEQ} K={K_INEQ} batch={b} shared V", N_INEQ, K_INEQ, b,
+         False, 128) for b in (B_INEQ, B_INEQ // 4, 1)]
     for dtype, tol, extra in ((torch.float32, F32_TOL, main_rows),
                               (torch.float64, F64_TOL, f64_rows)):
         for name, N, K, batch, per, iters in cases + extra:
@@ -291,9 +314,10 @@ def phase_kernel(torch):
             conv = rrp.reshape(batch, K) <= TOL2
             rr_ok = bool((rrk[conv] <= 1.01 * TOL2[conv] + 1e-30).all())
             n_conv = int(conv.sum())
-            log("kernel", f"{str(dtype)[6:]} {name}: max|dX| {err:.3e} "
-                f"(tol {tol:g}), converged rows {n_conv}/{batch * K} "
-                f"rr<=1.01*tol2 {rr_ok}")
+            log("kernel", f"{str(dtype)[6:]} {name} "
+                f"({cg.body(batch * K, N, dtype, not per)} body): max|dX| "
+                f"{err:.3e} (tol {tol:g}), converged rows {n_conv}/"
+                f"{batch * K} rr<=1.01*tol2 {rr_ok}")
             if not (err <= tol and rr_ok and np.isfinite(err)):
                 raise RuntimeError(f"kernel disagrees with plain version: {name}")
             worst = max(worst, err)
@@ -332,7 +356,7 @@ def phase_kernel(torch):
             f"({100 * b_ffma / t['ms']:.1f}%), bound 3xTF32 {b_tc:.3f} ms "
             f"({100 * b_tc / t['ms']:.1f}%) (runs {tk1:.3f}/{tk2:.3f}, "
             f"{tp1:.3f}/{tp2:.3f}, {tg1:.4f}/{tg2:.4f})")
-    for label, C, N, steps in CG_TIMED_F64:
+    for label, C, N, steps in CG_TIMED_F64 + CG_TIMED_C4:
         V, FM, B, DINV, TOL2, X0 = cg_problem(torch, rng, N, 1, C,
                                               torch.float64)
         TOL2 = torch.zeros_like(TOL2)
@@ -348,14 +372,16 @@ def phase_kernel(torch):
                                    PEAK_F64_FLOPS)
         t = {"ms": min(tk1, tk2), "plain_ms": min(tp1, tp2), "bound_ms": b,
              "bound_by": by, "bound_dfma_ms": b_dfma,
-             "bound_dfma_by": by_dfma, "dtype": "f64"}
+             "bound_dfma_by": by_dfma, "dtype": "f64",
+             "body": cg.body(C, N, torch.float64, True)}
         times[label] = t
-        log("kernel", f"f64 {label} N={N} {steps} cold steps ("
-            f"{cg.body(C, N, torch.float64, True)} body): kernel "
-            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound DMMA "
-            f"{b:.3f} ms ({100 * b / t['ms']:.1f}%), bound DFMA {b_dfma:.3f} "
-            f"ms ({100 * b_dfma / t['ms']:.1f}%) (runs {tk1:.3f}/"
-            f"{tk2:.3f}, {tp1:.3f}/{tp2:.3f})")
+        log("kernel", f"f64 {label} N={N} {steps} cold steps ({t['body']} "
+            f"body): kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+            f"bound DMMA {b:.3f} ms ({100 * b / t['ms']:.1f}%), bound DFMA "
+            f"{b_dfma:.3f} ms ({100 * b_dfma / t['ms']:.1f}%) (runs "
+            f"{tk1:.3f}/{tk2:.3f}, {tp1:.3f}/{tp2:.3f}); the first body's "
+            f"time kept in PERF.md, not measured here: "
+            f"{FIRST_BODY_MS[label]:.2f} ms")
     return worst, times, exits
 
 
@@ -2283,7 +2309,7 @@ def main():
                         **ktimes[label])
                    for label, C, N, steps in CG_TIMED]
         + [dict(shape=f"{label}, N={N}, {steps} steps", **ktimes[label])
-           for label, C, N, steps in CG_TIMED_F64],
+           for label, C, N, steps in CG_TIMED_F64 + CG_TIMED_C4],
         "ptxas": [{"kernel": k, "registers": r, "spill_stores": st,
                    "spill_loads": ld} for k, r, st, ld, _ in ptxas
                   if "cg_" in k],

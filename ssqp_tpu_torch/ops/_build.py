@@ -68,6 +68,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i32
     lib.ssqp_cg_tile_rows_f32.argtypes = [i32, i32]  # C, N
     lib.ssqp_cg_tile_rows_f32.restype = i32
+    lib.ssqp_cg_body_f64.argtypes = [i32]  # N
+    lib.ssqp_cg_body_f64.restype = i32
     for name in ("ssqp_chol_body_f32", "ssqp_chol_body_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [i32, i32]  # n, K

@@ -19,13 +19,18 @@ alive, rr > tol2). While a profiler records, a launch runs inside the span
 ``ssqp.cg_kernel`` and adds a record of its shape, body and row steps to
 the registry of ``utils/diagnostics.py``.
 
-The kernel has two bodies, picked by a fixed rule on the arguments alone:
+The kernel has three bodies, picked by a fixed rule on the arguments alone:
 float32 with one shared V (``V.dim() == 2``) and N <= 1024 runs the
 tensor-core body (3xTF32 ``mma.sync``, tiles of 16/32/64 rows chosen from C
-and N, V streamed through shared memory); float64, a per-instance V and
-float32 with N > 1024 run the first port's body (FFMA/DFMA, V read from L2).
-Neither falls back to the other, to the plain version or to a library call:
-a launch that fails raises.
+and N, V streamed through shared memory); float64 with one shared V and
+N <= 512 runs the DMMA body (float64 ``mma.sync`` on the float64 tensor
+cores, 16-row tiles, V from L2 straight into the operand registers, p and r
+in shared memory); a per-instance V, float32 with N > 1024 and float64 with
+N > 512 run the first port's body (FFMA/DFMA, V read from L2 by every
+8/16-row tile). What bounds the float64 case on the H100 is the product (2
+N^2 per row and step) at the float64 tensor cores' 67 TFLOP/s; the first
+body ran it on DFMA, latency-bound. No body falls back to another, to the
+plain version or to a library call: a launch that fails raises.
 """
 
 from __future__ import annotations
@@ -106,10 +111,17 @@ def cg_rows_reference(V, fmr, dinvr, Br, tol2r, iters, X0r,
 def body(C: int, N: int, dtype, shared: bool) -> str:
     """The body a launch of C rows of width N takes, as the library's own
     rule reports it: ``"tensor-core"`` where :func:`tile_rows` gives a tile
-    (float32, one shared V, N within the body's limit), else ``"cuda-core"``
-    (the first port's body)."""
-    tc = dtype == torch.float32 and shared and tile_rows(C, N) > 0
-    return "tensor-core" if tc else "cuda-core"
+    (float32, one shared V, N within the body's limit), ``"dmma"`` (float64,
+    one shared V, N within the DMMA body's limit), else ``"cuda-core"`` (the
+    first port's body)."""
+    from ssqp_tpu_torch.ops import _build
+
+    if shared and dtype == torch.float32 and tile_rows(C, N) > 0:
+        return "tensor-core"
+    if shared and dtype == torch.float64 and _build.load().ssqp_cg_body_f64(
+            int(N)):
+        return "dmma"
+    return "cuda-core"
 
 
 def tile_rows(C: int, N: int) -> int:

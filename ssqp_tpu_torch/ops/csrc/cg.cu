@@ -16,16 +16,22 @@
 // in the reference loop. A row's result depends on no other row of its tile;
 // only the summation order of the product differs from the plain version.
 //
-// Two bodies, picked by a fixed rule in run_cg:
+// Three bodies, picked by a fixed rule in run_cg on the arguments alone:
 //
 //  * cg_rows_tc_kernel, tensor cores: float32 with one shared V and
-//    N <= 1024, the case of both main paths (the frontier at N=256 with
-//    C = 4,096 and 16,384 rows; the inequality path at N=512 with C = 7,104
-//    and 28,416 rows).
+//    N <= 1024, the case of both float32 main paths (the frontier at N=256
+//    with C = 4,096 and 16,384 rows; the inequality path at N=512 with
+//    C = 7,104 and 28,416 rows).
+//  * cg_rows_dmma_kernel, float64 tensor cores (DMMA): float64 with one
+//    shared V and N <= 512, config 4's float64 search (N=512, 111 rows an
+//    instance: C = 28,416 for a batch of 256, 111 for one problem).
 //  * cg_rows_kernel, the first port's body (FFMA/DFMA, a tile of at most 16
-//    rows, V read from L2 by every tile and step): float64 (the on-card
-//    float64 audits and solves), a per-instance V (inst != nullptr, on no
-//    main path) and float32 with N > 1024.
+//    rows, V read from L2 by every tile and step): float64 with N > 512
+//    (config 8's float64 audit at N=1024), a per-instance V (inst !=
+//    nullptr, on no main path) and float32 with N > 1024.
+//
+// The DMMA body measured faster than the first body at every C from 3 to
+// 28,416 rows and N from 14 to 512 (1.5-3.6x), so the rule reads N only.
 //
 // What bounds the float32 shared-V case on this card: per row and step the
 // matvec costs 2 N^2 FLOPs against ~14 N of vector work, 34.4 GFLOP per 64
@@ -72,13 +78,45 @@
 // device-memory traffic (28 bytes per element and step), since a tile's
 // state does not fit on chip beside the accumulators.
 //
-// Both bodies can count the steps each row runs: the steps that start with
-// the row alive (rr > tol2), the plain version's own test, written once at
-// the end to an optional int array (ops/cg.py passes one while a profiler
-// records). The first body counts in shared memory behind a null check.
-// The tensor-core body takes a COUNT template flag instead, because the
-// count cost its largest tiles spill stores: a launch without the array
-// runs the body as it was.
+// What bounds the float64 shared-V case: the product again, 2 N^2 per row
+// and step, at the 67 TFLOP/s of the float64 tensor cores (twice DFMA's):
+// 14.4 ms per 64 steps at config 4's launch (C=28416, N=512). The first
+// body ran it on DFMA with 8-row tiles (its shared-memory state allows no
+// more at N=512) and took 115 ms: latency-bound, one load of V per k and
+// thread in flight. The DMMA body:
+//
+//  * Tiles of 16 rows (one m16 tile) x NP = 64 NW columns (N padded, NW
+//    the least of 2/4/8 with 64 NW >= N), 8 warps of 8 NW columns; one
+//    block owns a tile for the whole CG loop.
+//  * The product on mma.sync m16n8k8 f64: IEEE float64 FMAs, one
+//    accumulation chain, no operand splits. Pm = fm . p is the A operand in
+//    shared memory (row stride NP + 4: fragment loads free of bank
+//    conflicts). Each element of Vt is used by one warp only, so it goes
+//    from L2 into the B fragments in registers, two k8 steps ahead, with no
+//    copy through shared memory and no barrier per k-slice; an n8-tile
+//    pair's columns interleave so that a lane's two B values are one
+//    16-byte load. L2 carries N^2 words per 16 rows and step (the first
+//    body's per 8).
+//  * p and r stay in shared memory (each thread's own slots), the
+//    accumulators in registers through the elementwise passes; x in device
+//    memory (read and written once a step, with dinv read: 24 bytes per
+//    element and step, 16-byte accesses); fm read once per launch and kept
+//    as one bit per element where the tile's values are 0 or 1 (else read
+//    where needed). The row sums go in a fixed order as in the float32
+//    body. Rows and columns outside the launch are zero throughout.
+//
+// What holds the DMMA body back (PERF.md): its L2 loads and its products do
+// not overlap (each alone takes about half of the product's time), and the
+// elementwise passes (a quarter of a step) run between products, one block
+// per SM.
+//
+// All three bodies can count the steps each row runs: the steps that start
+// with the row alive (rr > tol2), the plain version's own test, written once
+// at the end to an optional int array (ops/cg.py passes one while a profiler
+// records). The first and the DMMA body count in shared memory behind a
+// null check. The tensor-core body takes a COUNT template flag instead,
+// because the count cost its largest tiles spill stores: a launch without
+// the array runs the body as it was.
 //
 // ptxas (-Xptxas -v, sm_90a, CUDA 12.8), tensor-core body (TR, NT):
 // registers, spill stores/loads in bytes, threads, dynamic shared memory:
@@ -89,8 +127,10 @@
 // without, and TR more ints of shared memory. First body: 32-255
 // registers, spills of up to 144 bytes in some float64 and per-instance-V
 // instantiations (float64, shared V, 8-row tiles: 128 registers, none;
-// 80 and 56/40 before the count); chip_smoke.py prints every kernel's
-// report.
+// 80 and 56/40 before the count). DMMA body (NW), 256 threads: (8) 255,
+// 184/256 (88/160 without 16-byte loads), 200,256 bytes; (4) 216 (202),
+// 0/0, 101,952; (2) 152 (136), 0/0, 52,800. chip_smoke.py prints every
+// kernel's report.
 //
 // A per-instance V is handled (first body) by a per-row instance index and a
 // V stride. The C entry points return cudaGetLastError() after the launch.
@@ -988,6 +1028,462 @@ cudaError_t run_tc(const float* Vt, const float* fm, const float* dinv,
   return cudaErrorInvalidConfiguration;
 }
 
+// ---------------------------------------------------------------------------
+// Float64, shared V, N <= 512: DMMA body (mma.sync m16n8k8 f64).
+// ---------------------------------------------------------------------------
+
+template <int NW>
+struct Dm {
+  static constexpr int TR = 16;              // rows per tile: one m16 tile
+  static constexpr int WARPS = 8;            // each owns 8 NW columns
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int NQ = NW / 2;          // n8-tile pairs per warp
+  static constexpr int NP = 8 * NW * WARPS;  // padded columns
+  static constexpr int EL = 4 * NW;          // elements per thread
+  static constexpr int LDA = NP + 4;         // Pm row stride (doubles)
+  static constexpr int DEPTH = 2;            // k8 steps of Vt in flight
+  // Pm [TR][LDA] | p, r [EL / 2][THREADS] each (double2) | the row sums
+  // [3][WARPS][TR] (doubles) | each row's step count [TR] (ints)
+  static constexpr size_t SMEM_BYTES =
+      8 * ((size_t)TR * LDA + 2 * (size_t)EL * THREADS + 3 * WARPS * TR) +
+      4 * TR;
+  static_assert(NW % 2 == 0 && SMEM_BYTES <= 232448, "tile too wide");
+};
+
+// d += a b, one m16n8k8 float64 product: IEEE float64 FMAs
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// Vt[k][c], Vt[k][c + 1]; zeros outside the N x N matrix. VEC: N even and
+// Vt 16-byte aligned, so the pair is one 16-byte load.
+template <bool VEC>
+__device__ __forceinline__ double2 dm_ld_vt(const double* __restrict__ Vt,
+                                            int N, int k, int c) {
+  if (k >= N || c >= N) return make_double2(0.0, 0.0);
+  const double* q = Vt + (size_t)k * N + c;
+  if constexpr (VEC) return __ldg(reinterpret_cast<const double2*>(q));
+  return make_double2(__ldg(q), c + 1 < N ? __ldg(q + 1) : 0.0);
+}
+
+// v[m] = row[c + m] for m < 4 where in and c + m < N, else 0 (NC: through
+// the read-only data path, for arrays the kernel does not write).
+template <bool VEC, bool NC>
+__device__ __forceinline__ void dm_ld4(const double* row, int c, int N,
+                                       bool in, double (&v)[4]) {
+#pragma unroll
+  for (int m = 0; m < 4; m += 2) {
+    const bool a = in && c + m < N, b = in && c + m + 1 < N;
+    if constexpr (VEC) {  // c + m even, N even: a == b
+      double2 w = make_double2(0.0, 0.0);
+      if (a) {
+        const double2* q = reinterpret_cast<const double2*>(row + c + m);
+        w = NC ? __ldg(q) : *q;
+      }
+      v[m] = w.x;
+      v[m + 1] = w.y;
+    } else {
+      v[m] = a ? (NC ? __ldg(row + c + m) : row[c + m]) : 0.0;
+      v[m + 1] = b ? (NC ? __ldg(row + c + m + 1) : row[c + m + 1]) : 0.0;
+    }
+  }
+}
+
+// row[c + m] = v[m] for m < 4 where in and c + m < N.
+template <bool VEC>
+__device__ __forceinline__ void dm_st4(double* row, int c, int N, bool in,
+                                       const double (&v)[4]) {
+#pragma unroll
+  for (int m = 0; m < 4; m += 2) {
+    if constexpr (VEC) {
+      if (in && c + m < N)
+        *reinterpret_cast<double2*>(row + c + m) = make_double2(v[m], v[m + 1]);
+    } else {
+      if (in && c + m < N) row[c + m] = v[m];
+      if (in && c + m + 1 < N) row[c + m + 1] = v[m + 1];
+    }
+  }
+}
+
+// acc = Pm Vt for this warp's 8 NW columns of the tile's 16 rows, over all
+// k in steps of 8. Each element of Vt is used by one warp only, so it goes
+// from L2 straight into the B fragments, DEPTH steps ahead; Pm, which every
+// warp uses, is the A operand in shared memory. The k8 step's B fragment
+// of n8-tile 2q + e is column cb + 16 q + e of Vt (cb = 8 NW warp + 2 n, n
+// the tile's own column), so that a lane's two columns come in one 16-byte
+// load. One accumulation chain in float64.
+template <int NW, bool VEC>
+__device__ __forceinline__ void dm_matvec(const double* pm_s,
+                                          const double* __restrict__ Vt,
+                                          int N, double (&acc)[NW][4]) {
+  using S = Dm<NW>;
+  constexpr int NQ = S::NQ, LDA = S::LDA, D = S::DEPTH;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int cb = (threadIdx.x >> 5) * NW * 8 + 2 * g;  // + 16 q
+  const int nk = (N + 7) / 8;
+  double2 b[D][NQ][2];
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      b[d][q][0] = dm_ld_vt<VEC>(Vt, N, 8 * d + t, cb + 16 * q);
+      b[d][q][1] = dm_ld_vt<VEC>(Vt, N, 8 * d + t + 4, cb + 16 * q);
+    }
+#pragma unroll
+  for (int nt = 0; nt < NW; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[nt][j] = 0.0;
+  __syncthreads();  // Pm written
+  const double* a = pm_s + g * LDA + t;
+#pragma unroll 1
+  for (int kb = 0; kb < nk; kb += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (kb + d < nk) {
+        const int k0 = 8 * (kb + d), kn = k0 + 8 * D;
+        const double af[4] = {a[k0], a[8 * LDA + k0], a[k0 + 4],
+                              a[8 * LDA + k0 + 4]};
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const double b0[2] = {b[d][q][0].x, b[d][q][1].x};
+          const double b1[2] = {b[d][q][0].y, b[d][q][1].y};
+          mma_f64(acc[2 * q], af, b0);
+          mma_f64(acc[2 * q + 1], af, b1);
+          b[d][q][0] = dm_ld_vt<VEC>(Vt, N, kn + t, cb + 16 * q);
+          b[d][q][1] = dm_ld_vt<VEC>(Vt, N, kn + t + 4, cb + 16 * q);
+        }
+      }
+    }
+  }
+}
+
+// Sums each of NQ per-row partials over the tile's threads: part[q][h]
+// belongs to row g + 8h; every thread gets the totals of its two rows. The
+// order is fixed: the four lanes of a row, then the warps in turn.
+template <int TR, int WARPS, int NQ>
+__device__ __forceinline__ void dm_row_sums(double (&part)[NQ][2],
+                                            double* red,
+                                            double (&out)[NQ][2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      double v = part[q][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if ((lane & 3) == 0) red[(q * WARPS + warp) * TR + g + 8 * h] = v;
+    }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      double s = 0.0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) s += red[(q * WARPS + w) * TR + g + 8 * h];
+      out[q][h] = s;
+    }
+}
+
+__device__ __forceinline__ bool dm_any_alive(const double (&rr)[2],
+                                             const double (&tol)[2]) {
+  return __syncthreads_or((rr[0] > tol[0]) | (rr[1] > tol[1])) != 0;
+}
+
+template <int NW, bool VEC>
+__global__ void __launch_bounds__(Dm<NW>::THREADS, 1)
+cg_rows_dmma_kernel(const double* __restrict__ Vt,
+                    const double* __restrict__ fm,
+                    const double* __restrict__ dinv,
+                    const double* __restrict__ Bm,
+                    const double* __restrict__ tol2, double* __restrict__ X,
+                    double* __restrict__ rr_out, int* __restrict__ steps_out,
+                    int C, int N, int iters) {
+  using S = Dm<NW>;
+  constexpr int TR = S::TR, WARPS = S::WARPS, THREADS = S::THREADS,
+                LDA = S::LDA, NQ = S::NQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* pm_s = reinterpret_cast<double*>(smem_raw);  // [TR][LDA] fm . p
+  double2* p_s = reinterpret_cast<double2*>(pm_s + TR * LDA);  // [EL/2][THREADS]
+  double2* r_s = p_s + S::EL / 2 * THREADS;                     // [EL/2][THREADS]
+  double* red_s = reinterpret_cast<double*>(r_s + S::EL / 2 * THREADS);
+  int* nstep_s = reinterpret_cast<int*>(red_s + 3 * WARPS * TR);  // [TR]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * TR;
+  const int nrows = min(TR, C - row0);
+
+  // This thread owns, for q < NW / 2 and h < 2, the four columns c4 + 16 q
+  // + m (m < 4) of row g + 8 h: the product's accumulators acc[2 q + (m &
+  // 1)][2 h + (m >> 1)], and p and r in its own slots of shared memory
+  // (one double2 per two columns); x stays in device memory. Everything
+  // outside the launch's rows and columns is zero throughout.
+  const int c4 = warp * NW * 8 + 4 * t;
+  auto rin = [&](int h) { return g + 8 * h < nrows; };
+  auto grow = [&](int h) {
+    return (size_t)(row0 + (rin(h) ? g + 8 * h : 0)) * N;
+  };
+  auto slot = [&](int q, int h, int mp) {
+    return ((q * 2 + h) * 2 + mp) * THREADS + tid;
+  };
+  auto pm_row = [&](int h) { return pm_s + (g + 8 * h) * LDA; };
+
+  // fm is read once: where every value of the tile is 0 or 1 it is kept as
+  // one bit per element; otherwise the passes read it from device memory.
+  uint32_t fbits = 0;
+  int fbin = 1;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      double f[4];
+      dm_ld4<VEC, true>(fm + grow(h), c4 + 16 * q, N, rin(h), f);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        fbin &= f[m] == 1.0 || __double_as_longlong(f[m]) == 0;
+        fbits |= (uint32_t)(f[m] == 1.0) << ((q * 2 + h) * 4 + m);
+      }
+    }
+  fbin = __syncthreads_and(fbin);
+  auto fget = [&](int q, int h, double (&f)[4]) {
+    if (fbin) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        f[m] = (fbits >> ((q * 2 + h) * 4 + m)) & 1u ? 1.0 : 0.0;
+    } else {
+      dm_ld4<VEC, true>(fm + grow(h), c4 + 16 * q, N, rin(h), f);
+    }
+  };
+  auto put_pm = [&](int q, int h, const double (&f)[4],
+                    const double (&v)[4]) {
+    double2* d = reinterpret_cast<double2*>(pm_row(h) + c4 + 16 * q);
+    d[0] = make_double2(f[0] * v[0], f[1] * v[1]);
+    d[1] = make_double2(f[2] * v[2], f[3] * v[3]);
+  };
+
+  // ---- Pm = fm . x0 ---------------------------------------------------------
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      double f[4], x[4];
+      fget(q, h, f);
+      dm_ld4<VEC, false>(X + grow(h), c4 + 16 * q, N, rin(h), x);
+      put_pm(q, h, f, x);
+    }
+  double tol[2], rz[2], rr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    tol[h] = rin(h) ? tol2[row0 + g + 8 * h] : 0.0;
+    if (warp == 0 && t == 0) nstep_s[g + 8 * h] = 0;
+  }
+
+  // ---- r = b - vp(x0); z = r . dinv; p = z ----------------------------------
+  double acc[NW][4];
+  dm_matvec<NW, VEC>(pm_s, Vt, N, acc);
+  __syncthreads();  // every warp is done with Pm
+  {
+    double part[2][2] = {};
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        double f[4], x[4], bv[4], dv[4], r[4], z[4];
+        fget(q, h, f);
+        dm_ld4<VEC, false>(X + grow(h), c4 + 16 * q, N, rin(h), x);
+        dm_ld4<VEC, true>(Bm + grow(h), c4 + 16 * q, N, rin(h), bv);
+        dm_ld4<VEC, true>(dinv + grow(h), c4 + 16 * q, N, rin(h), dv);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const double y = acc[2 * q + (m & 1)][2 * h + (m >> 1)];
+          r[m] = bv[m] - (f[m] * y + (1.0 - f[m]) * x[m]);
+          z[m] = r[m] * dv[m];
+          part[0][h] += r[m] * z[m];
+          part[1][h] += r[m] * r[m];
+        }
+        r_s[slot(q, h, 0)] = make_double2(r[0], r[1]);
+        r_s[slot(q, h, 1)] = make_double2(r[2], r[3]);
+        p_s[slot(q, h, 0)] = make_double2(z[0], z[1]);
+        p_s[slot(q, h, 1)] = make_double2(z[2], z[3]);
+        put_pm(q, h, f, z);
+      }
+    double tot[2][2];
+    dm_row_sums<TR, WARPS, 2>(part, red_s + WARPS * TR, tot);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rz[h] = tot[0][h];
+      rr[h] = tot[1][h];
+    }
+  }
+
+  int it = 0;
+  bool go = dm_any_alive(rr, tol);
+  while (it < iters && go) {
+    const int n = min(kChunk, iters - it);
+    for (int s = 0; s < n; ++s) {
+      bool alive[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        alive[h] = rr[h] > tol[h];
+        if (warp == 0 && t == 0) nstep_s[g + 8 * h] += alive[h];
+      }
+      // ---- Ap = vp(p) (in acc), pAp -------------------------------------
+      dm_matvec<NW, VEC>(pm_s, Vt, N, acc);
+      double pap[1][2] = {};
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          double f[4];
+          fget(q, h, f);
+          const double2 p01 = p_s[slot(q, h, 0)], p23 = p_s[slot(q, h, 1)];
+          const double pv[4] = {p01.x, p01.y, p23.x, p23.y};
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            double& y = acc[2 * q + (m & 1)][2 * h + (m >> 1)];
+            y = f[m] * y + (1.0 - f[m]) * pv[m];
+            pap[0][h] += pv[m] * y;
+          }
+        }
+      double papt[1][2];
+      dm_row_sums<TR, WARPS, 1>(pap, red_s, papt);
+      double alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        alpha[h] = (alive[h] && papt[0][h] > 0.0)
+                       ? rz[h] / floor_max(papt[0][h], 1e-30) : 0.0;
+      // ---- x += alpha p; r -= alpha Ap; z = r . dinv (in acc) -------------
+      double part[2][2] = {};
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const double a = alpha[h];
+          double x[4], dv[4];
+          dm_ld4<VEC, false>(X + grow(h), c4 + 16 * q, N, rin(h), x);
+          dm_ld4<VEC, true>(dinv + grow(h), c4 + 16 * q, N, rin(h), dv);
+          const double2 p01 = p_s[slot(q, h, 0)], p23 = p_s[slot(q, h, 1)];
+          const double2 r01 = r_s[slot(q, h, 0)], r23 = r_s[slot(q, h, 1)];
+          const double pv[4] = {p01.x, p01.y, p23.x, p23.y};
+          double r[4] = {r01.x, r01.y, r23.x, r23.y};
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            double& y = acc[2 * q + (m & 1)][2 * h + (m >> 1)];
+            x[m] = x[m] + a * pv[m];
+            r[m] = r[m] - a * y;
+            y = r[m] * dv[m];
+            part[0][h] += r[m] * y;
+            part[1][h] += r[m] * r[m];
+          }
+          dm_st4<VEC>(X + grow(h), c4 + 16 * q, N, rin(h), x);
+          r_s[slot(q, h, 0)] = make_double2(r[0], r[1]);
+          r_s[slot(q, h, 1)] = make_double2(r[2], r[3]);
+        }
+      double tot[2][2];
+      dm_row_sums<TR, WARPS, 2>(part, red_s + WARPS * TR, tot);
+      double beta[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        beta[h] = alive[h] ? tot[0][h] / floor_max(rz[h], 1e-30) : 0.0;
+        rz[h] = tot[0][h];
+        rr[h] = tot[1][h];
+      }
+      // ---- p = z + beta p; Pm = fm . p ------------------------------------
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          double f[4], pn[4];
+          fget(q, h, f);
+          const double2 p01 = p_s[slot(q, h, 0)], p23 = p_s[slot(q, h, 1)];
+          const double pv[4] = {p01.x, p01.y, p23.x, p23.y};
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            pn[m] = acc[2 * q + (m & 1)][2 * h + (m >> 1)] + beta[h] * pv[m];
+          p_s[slot(q, h, 0)] = make_double2(pn[0], pn[1]);
+          p_s[slot(q, h, 1)] = make_double2(pn[2], pn[3]);
+          put_pm(q, h, f, pn);
+        }
+    }
+    it += kChunk;
+    go = dm_any_alive(rr, tol);
+  }
+  if (warp == 0 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = g + 8 * h;
+      if (row < nrows) {
+        rr_out[row0 + row] = rr[h];
+        if (steps_out != nullptr) steps_out[row0 + row] = nstep_s[row];
+      }
+    }
+  }
+}
+
+template <int NW, bool VEC>
+cudaError_t launch_dmma(const double* Vt, const double* fm,
+                        const double* dinv, const double* B,
+                        const double* tol2, double* X, double* rr,
+                        int* steps, int C, int N, int iters,
+                        cudaStream_t stream) {
+  using S = Dm<NW>;
+  auto kern = cg_rows_dmma_kernel<NW, VEC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  const int grid = (C + S::TR - 1) / S::TR;
+  kern<<<grid, S::THREADS, S::SMEM_BYTES, stream>>>(
+      Vt, fm, dinv, B, tol2, X, rr, steps, C, N, iters);
+  return cudaGetLastError();
+}
+
+// The widest tile whose Pm, p and r fit a block's shared memory.
+constexpr int kDmMaxN = 512;
+
+// Whether a float64 solve with one shared V of width N runs the DMMA body:
+// the rule's one owner, read by run_cg and ssqp_cg_body_f64. The DMMA body
+// measured faster than the first body at every C from 3 to 28,416 rows, so
+// C does not enter.
+inline bool dmma_takes(int N) { return N > 0 && N <= kDmMaxN; }
+
+// The DMMA body's instantiation: 64 NW >= N columns (NW = 2, 4, 8); VEC
+// where every row of the arrays is 16-byte aligned.
+template <bool VEC>
+cudaError_t run_dmma_vec(const double* Vt, const double* fm,
+                         const double* dinv, const double* B,
+                         const double* tol2, double* X, double* rr,
+                         int* steps, int C, int N, int iters,
+                         cudaStream_t stream) {
+  if (N <= 128)
+    return launch_dmma<2, VEC>(Vt, fm, dinv, B, tol2, X, rr, steps, C, N,
+                               iters, stream);
+  if (N <= 256)
+    return launch_dmma<4, VEC>(Vt, fm, dinv, B, tol2, X, rr, steps, C, N,
+                               iters, stream);
+  return launch_dmma<8, VEC>(Vt, fm, dinv, B, tol2, X, rr, steps, C, N,
+                             iters, stream);
+}
+
+cudaError_t run_dmma(const double* Vt, const double* fm, const double* dinv,
+                     const double* B, const double* tol2, double* X,
+                     double* rr, int* steps, int C, int N, int iters,
+                     cudaStream_t stream) {
+  auto a16 = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  if (N % 2 == 0 && a16(Vt) && a16(fm) && a16(dinv) && a16(B) && a16(X))
+    return run_dmma_vec<true>(Vt, fm, dinv, B, tol2, X, rr, steps, C, N,
+                              iters, stream);
+  return run_dmma_vec<false>(Vt, fm, dinv, B, tol2, X, rr, steps, C, N,
+                             iters, stream);
+}
+
 template <typename T>
 int run_cg(const T* Vt, long long vstride, const int* inst, const T* fm,
            const T* dinv, const T* B, const T* tol2, T* X, T* R, T* rr,
@@ -1006,6 +1502,9 @@ int run_cg(const T* Vt, long long vstride, const int* inst, const T* fm,
       return (int)run_tc(Vt, fm, dinv, B, tol2, X, R, rr, steps, C, N, iters,
                          sms, stream);
     }
+  } else if (inst == nullptr && dmma_takes(N)) {
+    return (int)run_dmma(Vt, fm, dinv, B, tol2, X, rr, steps, C, N, iters,
+                         stream);
   }
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev);
@@ -1044,6 +1543,10 @@ int ssqp_cg_tile_rows_f32(int C, int N) {
   tc_tile(C, N, sms, &tr, &nt);
   return tr;
 }
+
+// 1 where a float64 shared-V solve of width N runs the DMMA body, 0 where
+// it runs the first body.
+int ssqp_cg_body_f64(int N) { return dmma_takes(N) ? 1 : 0; }
 
 // R: (C, N) scratch for the residual, used by the tensor-core body (float32,
 // shared V, N <= 1024) and ignored otherwise (may then be null). steps: (C,)

@@ -105,13 +105,28 @@ def _both(args, iters, X0, dev):
     return Xk.cpu().numpy(), rrk.cpu().numpy(), Xp.numpy(), rrp.numpy()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("per_instance", [False, True])
-@pytest.mark.parametrize("N,K,batch", [(37, 3, 6), (256, 2, 64), (300, 1, 5),
-                                       (1, 2, 3)])
+_DTYPES = (torch.float32, torch.float64)
+# (N, K, batch, per-instance V, dtype index): odd N, N above one thread per
+# column (300), row counts that are no multiple of a row tile, both
+# precisions, shared and per-instance V; then the DMMA body's shapes
+# (float64, one V): config 4's 111 rows per instance at batch 256, 64 and 1,
+# ragged widths (263, 200: no multiple of its 64-column groups) and N = 1024
+# past its width limit (the first body)
+_MATCH = [(N, K, batch, per, d) for d in (0, 1) for per in (False, True)
+          for N, K, batch in ((37, 3, 6), (256, 2, 64), (300, 1, 5),
+                              (1, 2, 3))]
+_MATCH += [(N, K, batch, False, 1) for N, K, batch in (
+    (512, 111, 256), (512, 111, 64), (512, 111, 1), (263, 3, 1500),
+    (200, 7, 600), (1024, 2, 256))]
+
+
+@pytest.mark.parametrize("N,K,batch,per_instance,dtype", [
+    pytest.param(N, K, b, per, _DTYPES[d], id=f"{N}-{K}-{b}-{per}-dtype{d}")
+    for N, K, b, per, d in _MATCH])
 def test_kernel_matches_plain_version(dev, dtype, per_instance, N, K, batch):
     """Odd N (no padding), N above one thread per column (300), a row count
-    that is not a multiple of the row tile, shared and per-instance V."""
+    that is not a multiple of the row tile, shared and per-instance V; the
+    DMMA body at config 4's rows and at ragged widths."""
     args = _cg_problem(N + K, N, K, batch, dtype, per_instance)
     X0 = torch.zeros_like(args[2])
     Xk, rrk, Xp, rrp = _both(args, 300, X0, dev)
@@ -121,23 +136,77 @@ def test_kernel_matches_plain_version(dev, dtype, per_instance, N, K, batch):
     assert (rrk <= 1.01 * tol2).all() and (rrp <= 1.01 * tol2).all()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("iters", [3, 11])
-def test_kernel_iteration_cap_matches_plain_version(dev, dtype, iters):
-    """tol2 = 0: no row converges, both run exactly ``iters`` steps (11
-    checks the chunk clamp at a non-multiple of 8)."""
-    V, FM, B, DINV, TOL2 = _cg_problem(5, 40, 2, 7, dtype)
+def _cap_problem(case, dtype):
+    """The iteration cap's problems. "small": N = 40, 14 rows. "dmma":
+    config 4's width and 111 rows per instance, 64 instances (C = 7104, the
+    DMMA body), V's spectrum log-spaced over [1, 1e4] so that the capped
+    steps still descend. "desc": the same rows on the spectrum [1, 10], for
+    float64's 128-step budget: the rows descend for about 45 steps to rr ~
+    1e-31 and run the rest under the 1e-30 floors. A wider spectrum does not
+    hold the standing tolerances over 128 steps for any body: the plain
+    version in a second summation order (Pm V^T summed over k in slices of
+    8, last slice first) parts from itself there by 1.3e-7 ([1, 1e3]) to
+    1.4e-4 ([1, 1e4]) in X, and by up to 1.6x in rr, while on [1, 10] it
+    stays within 5e-15 in X and 2e-11 relative in rr. "pap": the "dmma"
+    rows on -V, instances with every variable free (pAp < 0 from the first
+    step, so alpha = 0 and X stays X0; dinv from |diag V| keeps r.z > 0)
+    beside instances with none free (the identity operator, done in one
+    step). "frac": the "dmma" rows with a free mask of fractions on odd
+    instances (the DMMA body reads fm from device memory in their
+    tiles)."""
+    if case == "small":
+        return _cg_problem(5, 40, 2, 7, dtype)
+    rng = np.random.default_rng(512)
+    N, K, batch = 512, 111, 64
+    V = _spd(rng, 1, N, 10.0 if case == "desc" else 1e4)[0]
+    if case == "pap":
+        V = -V
+        FM = np.repeat((np.arange(batch) % 2 == 0)[:, None], N, 1)
+    else:
+        FM = rng.uniform(size=(batch, N)) < 0.7
+    FM = FM.astype(np.float64)
+    if case == "frac":
+        FM[1::2] = rng.uniform(size=(batch // 2, N))
+    DINV = 1.0 / (FM * np.abs(np.diagonal(V)) + (1.0 - FM))
+    B = rng.standard_normal((batch, N, K))
+    return [torch.tensor(a, dtype=dtype)
+            for a in (V, FM, B, DINV, np.zeros((batch, K)))]
+
+
+@pytest.mark.parametrize("dtype,iters,case", [
+    pytest.param(_DTYPES[d], iters, case,
+                 id=f"{iters}-dtype{d}" + ("" if case == "small"
+                                           else f"-{case}"))
+    for d, iters, case in [(0, 3, "small"), (0, 11, "small"),
+                           (1, 3, "small"), (1, 11, "small"),
+                           (1, 5, "dmma"), (1, 13, "dmma"), (1, 128, "desc"),
+                           (1, 13, "frac"), (1, 13, "pap"), (1, 128, "pap")]])
+def test_kernel_iteration_cap_matches_plain_version(dev, dtype, iters, case):
+    """tol2 = 0: no row converges, both run exactly ``iters`` steps (11 and
+    13 check the chunk clamp at a non-multiple of 8; 128 is float64's CG
+    budget); "dmma", "desc", "frac" and "pap" run the DMMA body, "pap" its
+    pAp <= 0 freeze."""
+    V, FM, B, DINV, TOL2 = _cap_problem(case, dtype)
+    if case != "small":
+        assert cg.body(B.shape[0] * B.shape[2], B.shape[1], dtype,
+                       True) == "dmma"
     args = (V, FM, B, DINV, torch.zeros_like(TOL2))
     Xk, rrk, Xp, rrp = _both(args, iters, torch.zeros_like(B), dev)
     tol = 1e-10 if dtype == torch.float64 else 1e-4
     np.testing.assert_allclose(Xk, Xp, rtol=0, atol=tol)
     np.testing.assert_allclose(rrk, rrp, rtol=2e-2 if dtype == torch.float32
                                else 1e-8)
+    if case == "pap":
+        assert not Xk[0::2].any() and Xk[1::2].any()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernel_leaves_converged_warm_start_alone(dev, dtype):
-    V, FM, B, DINV, TOL2 = _cg_problem(3, 16, 2, 3, dtype)
+@pytest.mark.parametrize("dtype,N,K,batch", [
+    pytest.param(torch.float32, 16, 2, 3, id="dtype0"),
+    pytest.param(torch.float64, 16, 2, 3, id="dtype1"),
+    # config 4's rows, 64 instances: the DMMA body
+    pytest.param(torch.float64, 512, 111, 64, id="dtype1-dmma")])
+def test_kernel_leaves_converged_warm_start_alone(dev, dtype, N, K, batch):
+    V, FM, B, DINV, TOL2 = _cg_problem(3, N, K, batch, dtype)
     f = FM.double()
     Vp = f.unsqueeze(-1) * f.unsqueeze(-2) * V.double() \
         + torch.diag_embed(1.0 - f)
@@ -1038,35 +1107,50 @@ def test_shared_jacobi_bounds_on_card_enclose_the_spectrum(dev, with_W):
 
 
 def test_cg_body_switch_at_1024(dev):
-    """N = 1024 takes the tensor-core body, N = 1025 the first port's; both
-    agree with the plain version and are counted by body."""
-    for N, want in ((1024, "tensor-core"), (1025, "cuda-core")):
-        args = _cg_problem(3, N, 2, 8, torch.float32, False)
+    """The three bodies' rule at its edges, each launch counted under its
+    own body and within the standing tolerance of the plain version:
+    float32 with one V takes the tensor-core body up to N = 1024 and the
+    first port's at 1025; float64 with one V takes the DMMA body up to N =
+    512, at config 4's 111 rows per instance for a batch of 16 (C = 1776)
+    and for one instance (C = 111: the rule reads no C), and the first body
+    at N = 513; float64 with a per-instance V takes the first body."""
+    cases = [(torch.float32, 1024, 2, 8, False, "tensor-core"),
+             (torch.float32, 1025, 2, 8, False, "cuda-core"),
+             (torch.float64, 512, 111, 16, False, "dmma"),
+             (torch.float64, 512, 111, 1, False, "dmma"),
+             (torch.float64, 513, 111, 16, False, "cuda-core"),
+             (torch.float64, 37, 3, 6, True, "cuda-core")]
+    for dtype, N, K, batch, per, want in cases:
+        args = _cg_problem(3, N, K, batch, dtype, per)
         X0 = torch.zeros_like(args[2])
         diagnostics.clear_counters()
         with profile(activities=[ProfilerActivity.CPU]):
             Xk, _, Xp, _ = _both(args, 64, X0, dev)
         launches = diagnostics.counters()["cg.launches"]
         assert {k[4]: r["launches"] for k, r in launches.items()} == {want: 1}
-        assert (cg.tile_rows(16, N) > 0) == (want == "tensor-core")
-        np.testing.assert_allclose(Xk, Xp, rtol=0, atol=5e-4)
+        assert cg.body(batch * K, N, dtype, not per) == want
+        if dtype == torch.float32:
+            assert (cg.tile_rows(16, N) > 0) == (want == "tensor-core")
+        np.testing.assert_allclose(Xk, Xp, rtol=0, atol=TOL[dtype])
 
 
 # ---- the steps each CG row ran ---------------------------------------------
 
 
-@pytest.mark.parametrize("shape", ["a", "f"])
+@pytest.mark.parametrize("shape", ["a", "f", "c4"])
 def test_kernel_row_steps_match_the_plain_version(dev, shape):
     """Each row's step count (the steps that start with the row alive)
     from the kernel against cg_rows_reference on the same CUDA tensors, at
-    PERF.md's CG shapes (a) C = 4096, N = 256, float32 (tensor-core body)
-    and (f) C = 512, N = 1024, float64 (first body), 64 steps, tolerances
-    spread over 1e-5..1e-1 (float64: 1e-12..1e-4) so that rows freeze on
+    PERF.md's CG shapes (a) C = 4096, N = 256, float32 (tensor-core body),
+    (f) C = 512, N = 1024, float64 (first body) and config 4's launch
+    C = 28416, N = 512, float64 (DMMA body), 64 steps, tolerances spread
+    over 1e-5..1e-1 (float64: 1e-12..1e-4) so that rows freeze on
     different steps. Under a profiler the launch's record in the registry
     holds its shape, body and the same sum."""
-    C, N, dtype, lo, hi, kind = (
-        (4096, 256, torch.float32, -5, -1, "tensor-core") if shape == "a"
-        else (512, 1024, torch.float64, -12, -4, "cuda-core"))
+    C, N, dtype, lo, hi, kind = {
+        "a": (4096, 256, torch.float32, -5, -1, "tensor-core"),
+        "f": (512, 1024, torch.float64, -12, -4, "cuda-core"),
+        "c4": (28416, 512, torch.float64, -12, -4, "dmma")}[shape]
     V, FM, B, DINV, TOL2 = _cg_problem(17, N, 1, C, torch.float64)
     Br, X0r, fmr, dinvr, _ = cg._rows(B, FM, DINV, TOL2, torch.zeros_like(B))
     rtol = torch.tensor(10.0 ** np.random.default_rng(C).uniform(
