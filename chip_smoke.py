@@ -1,6 +1,12 @@
-"""Smoke run of the PyTorch/CUDA port (ssqp_tpu_torch) on one NVIDIA GPU.
+"""At-scale checks of the PyTorch/CUDA port (ssqp_tpu_torch) on one NVIDIA
+GPU, and the two hand-written kernels' table: each kernel against its plain
+version, its device time beside the plain version's, a library yardstick
+and its bound, and ptxas's registers and spills.
 
     python3 chip_smoke.py
+
+End-to-end speed is the benchmark's (gpubench/run.py, its --trace 1
+breakdown, gpubench/program.py); nothing here times a solve.
 
 Phases (one line each; any failure raises and the exit code is not 0):
 
@@ -31,11 +37,10 @@ Phases (one line each; any failure raises and the exit code is not 0):
   5. main       — the frontier-QP path through solve_qp_batch_auto at
                   N=256, float32, on each route the JAX rule picks: B=2048
                   (plain), B=8192 (waves=8, checked) and B=4096 (PDAS
-                  compaction (2, 4, 8), checked), with the kernels' launch
-                  counts per route, the S-iterations per wave and the
-                  instances the waves' rescue re-solved; then plain, waves=8
-                  and c2f(coarse=8) timed at B=8192 in turns on three fresh
-                  grids, and the auto routes at B=2048 and 4096 (QP/s);
+                  compaction (2, 4, 8), checked), and the B=8192 batch
+                  through solve_qp_batch_c2f (coarse=8), with the kernels'
+                  launch counts per route, the S-iterations per wave and
+                  the instances the waves' rescue re-solved;
   6. audit      — 256 instances each of the B=2048 (plain) and B=8192
                   (waves) batches re-solved in float64 on the card;
                   objective gap and ||x - z||_inf quantiles, max gap < 1e-6;
@@ -43,8 +48,8 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   (N=512, M=10, J=100, float32, B_INEQ instances with shared
                   V, A, b, G, g, d, u and varying q) through
                   solve_qp_batch_auto, which takes the plain protocol and the
-                  tail refinement; feasibility, launch counts, S-iterations,
-                  how many instances the tail refined, and QP/s;
+                  tail refinement; feasibility, launch counts, S-iterations
+                  and how many instances the tail refined;
   8. ineq-audit — 32 of those instances re-solved in float64 on the card;
                   objective gap and ||x - z||_inf quantiles, max gap < 1e-6;
   9. refined    — the frontier problem in float64 at N=512, B=256 through
@@ -52,20 +57,18 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   and "lu": within 1e-9 of the plain float64 solve on the
                   card where the search labeled as float64 does, objective
                   gap < 1e-6 everywhere, the tiers within 1e-9 of each
-                  other, timed; the time of one batched float64 LU of the
-                  refined system's shape; one solve_qp_refined_dd at N=32;
+                  other; one solve_qp_refined_dd at N=32;
  10. lp         — BASELINE config 2's LP routes (bench_suite.py::config2's
                   generators, float32): the mixed batch (c, b, g per
                   instance) at B=256 and 4096 through solve_lp_batch_auto
                   (plain), the c-grid (waves=8) and the rhs grid (dual
-                  waves=8) at B=256 with the plain batch timed beside them,
-                  and criss-cross at N=40, B=256 through
-                  solve_lp_batch_cclp_rescued; per route the LP/s (best of
-                  3 fresh batches), the status histogram, the kernels'
-                  launches and the host syncs; every instance status 1/2 or
-                  the float64 solve's status, optima feasible, float32
-                  within 5e-5 of the port's float64 solve on the card, and
-                  32 instances of that within 1e-7 of scipy's HiGHS;
+                  waves=8) at B=256, and criss-cross at N=40, B=256 through
+                  solve_lp_batch_cclp_rescued; per route the status
+                  histogram and the kernels' launches; every instance
+                  status 1/2 or the float64 solve's status, optima feasible,
+                  float32 within 5e-5 of the port's float64 solve on the
+                  card, and 32 instances of that within 1e-7 of scipy's
+                  HiGHS;
  11. outer      — the outer layers on bench.py's frontier problem and the
                   BASELINE configs, float32 unless said: (a) the five
                   frontier sweeps (batch B=2048, waves=8 B=8192, warm over
@@ -75,13 +78,12 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   r'x = mu within the float32 tolerance 2^-16, 256 points
                   per sweep (all 128 of a warm one) re-solved in float64 on
                   the card at the grid's values within 1e-6 objective
-                  gap, QP/s best of 3 fresh grids, ms per point on the warm
-                  sweeps; (b) solve_qp_diff on 256 frontier points in
+                  gap; (b) solve_qp_diff on 256 frontier points in
                   float64 and float32 with a backward pass of sum(w x) in
                   q, b and u: the envelope identity (1e-8), central
                   differences along 4 random directions on 8 instances
                   (1e-5 relative), an infeasible instance's gradient exactly
-                  0, forward and backward times; (c) config 4 (N=512, M=10,
+                  0; (c) config 4 (N=512, M=10,
                   J=100) through the Model API in float32 and float64,
                   optimize -> write_mps -> read_mps -> optimize (the same
                   status, arrays identical, objective within 1e-6 of the
@@ -103,16 +105,15 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   Jacobi-scaled spectrum (float64 eigvalsh on the card);
                   per flag all solved, the PDAS rounds and their widths,
                   the inner solve's iterations per round, CG launches by
-                  body, aten ops and host syncs, S against the default's
-                  (where it differs, within 1e-6 objective gap of the
-                  float64 solve), QP/s best of 3 fresh grids in turns;
+                  body, S against the default's (where it differs, within
+                  1e-6 objective gap of the float64 solve);
  13. config7    — bench_suite.py::config7 on the port's ungil_like (N=14,
                   M=2, J=2, shortable) and sp500_like (N=263, condition
                   ~1e6-1e8) from ssqp_tpu_torch/utils/problems.py: the
                   coarse warm L-sweep (64 points), the coarse warm mu sweep
                   and its segments, the fine warm mu sweep (16 points per
                   segment, subsampled or padded to 256), the fine warm L
-                  sweep (256 geometric points), each timed once with every
+                  sweep (256 geometric points), each run once with every
                   point solved, S-iterations and CG launches; 96 points of
                   the fine mu sweep refined in float64 (refine_result, LU)
                   and audited against the port's float64 solve on the card:
@@ -120,15 +121,14 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   < 1e-6;
  14. config8    — bench_suite.py::config8's frontier at N=512 and N=1024,
                   B=8192, float32, through solve_qp_batch_auto (waves=8
-                  and the N >= 512 tail): all solved, the tail's passes,
-                  times and accepted corrections, CG launches by body, QP/s
-                  best of 3 fresh grids, 256 instances audited against
-                  float64 on the card (max gap < 1e-6 after the tail; the
-                  gap before it printed), and the CG kernel's time and
-                  bounds at N=1024 from phase 3.
+                  and the N >= 512 tail): all solved, the tail's passes
+                  and accepted corrections, CG launches by body, 256
+                  instances audited against float64 on the card (max gap
+                  < 1e-6 after the tail; the gap before it printed).
 
-Then one JSON line with the protocol times, the refined phase's numbers,
-the LP routes', the outer layers' and phases 12-14's,
+Each phase's host wall time is printed as a [wall] line. Then one JSON
+line with the refined phase's numbers, the LP routes', the outer layers',
+phases 12-14's and the wall times (``wall_s``),
 one JSON line with the kernel table (each kernel's launches on each route, for the Cholesky kernel also by (B, n, K) with the body each shape
 takes, its worst error against the plain version, its time, the plain
 version's, the library call's, the bound and ptxas's registers and spills),
@@ -616,7 +616,7 @@ class Spy:
     """Records the calls of ``module.name`` (``record(args, kwargs)``, by
     default the keyword arguments) while the wrapped function runs as
     before, or through ``run(real, args, kwargs)`` where that is given (to
-    time or keep its result); ``undo`` restores it."""
+    keep its result or count inside it); ``undo`` restores it."""
 
     def __init__(self, module, name, record=None, run=None):
         self.module, self.name = module, name
@@ -636,32 +636,54 @@ class Spy:
 
 def counted(torch, fn):
     """(result, launches) of one call with every kernel count set to 0
-    just before and read just after; the launches by CG body and by
-    Cholesky (B, n, K) from the launch records that the program keeps
-    while a profiler records (a CPU ``torch.profiler`` session around the
-    call, whose host cost lands in any time taken inside it)."""
+    just before and read just after: the launches as the kernel modules
+    count them (``cg.LAUNCHES``, ``chol.LAUNCHES``), by CG body (the
+    library's rule, ``cg.body``, on each launch's rows, width, dtype and
+    V) and by Cholesky (B, n, K), from spies on the two launch wrappers.
+    No profiler records, so the call runs the instances users run."""
     from collections import Counter
 
-    from torch.profiler import ProfilerActivity, profile
+    from ssqp_tpu_torch.ops import cg, chol, kkt
 
-    from ssqp_tpu_torch.ops import cg, chol
-    from ssqp_tpu_torch.utils import diagnostics
+    cg_keys, chol_keys = Counter(), Counter()
 
+    def cg_run(real, a, k):
+        out = real(*a, **k)
+        V, Br = a[0], a[3]
+        C, N = Br.shape
+        if Br.is_cuda and C and N:
+            cg_keys[(C, N, Br.dtype, V.dim() == 2)] += 1
+        return out
+
+    def chol_run(real, a, k):
+        out = real(*a, **k)
+        B, n, _ = a[0].shape
+        K = a[1].shape[2]
+        if a[0].is_cuda and B and n and K:
+            chol_keys[(B, n, K)] += 1
+        return out
+
+    spies = (Spy(cg, "cg_padded_rows", run=cg_run),
+             Spy(kkt, "chol_solve_batch", run=chol_run))
     torch.cuda.synchronize()
     cg.LAUNCHES = chol.LAUNCHES = 0
-    diagnostics.clear_counters()
-    with profile(activities=[ProfilerActivity.CPU]):
+    try:
         out = fn()
         torch.cuda.synchronize()
-    rec = diagnostics.counters()
-    by_body, by_shape = Counter(), Counter()
-    for (_, _, _, _, body), r in rec.get("cg.launches", {}).items():
-        by_body[body] += r["launches"]
-    for (B, n, K, _, _), k in rec.get("chol.launches", {}).items():
-        by_shape[(B, n, K)] += k
+    finally:
+        for spy in spies:
+            spy.undo()
+    by_body = Counter()
+    for key, n in cg_keys.items():
+        by_body[cg.body(*key)] += n
+    if (sum(cg_keys.values()), sum(chol_keys.values())) != (
+            cg.LAUNCHES, chol.LAUNCHES):
+        raise RuntimeError(f"the spies saw {sum(cg_keys.values())} CG and "
+                           f"{sum(chol_keys.values())} Cholesky launches "
+                           f"of {cg.LAUNCHES} and {chol.LAUNCHES}")
     return out, {"cg_rows": cg.LAUNCHES, "cg_by_body": dict(by_body),
                  "chol_solve": chol.LAUNCHES,
-                 "chol_by_shape": dict(by_shape)}
+                 "chol_by_shape": dict(chol_keys)}
 
 
 def run_route(torch, fn, Qb, B, tag, counters):
@@ -679,28 +701,15 @@ def run_route(torch, fn, Qb, B, tag, counters):
     return res
 
 
-def timed(torch, fn):
-    """(ms, result) of one call, CUDA events around it."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    r = fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end), r
-
-
-def phase_main(torch, card):
+def phase_main(torch):
     """The frontier through solve_qp_batch_auto at the three batch sizes
     whose routes differ (B=2048 plain, B=8192 waves=8, B=4096 compaction
-    (2, 4, 8)), each route checked; then plain, waves=8 and c2f(coarse=8)
-    timed at B=8192 in turns, and the auto routes at 2048 and 4096."""
+    (2, 4, 8)), each route checked, and the B=8192 batch through
+    solve_qp_batch_c2f (coarse=8)."""
     from ssqp_tpu_torch import Settings
     from ssqp_tpu_torch.parallel import batch
     from ssqp_tpu_torch.parallel.batch import (
-        frontier_batch, solve_qp_batch, solve_qp_batch_auto,
-        solve_qp_batch_c2f, solve_qp_batch_waves)
+        frontier_batch, solve_qp_batch_auto, solve_qp_batch_c2f)
 
     settings = Settings.for_dtype(torch.float32)
     Q, V, mu = bench_problem(torch, torch.float32)
@@ -741,35 +750,11 @@ def phase_main(torch, card):
     for spy in (waves, compact, rescue):
         spy.undo()
 
-    protos = {
-        "plain": lambda Qg, sh: solve_qp_batch(Qg, settings, shared=sh),
-        "waves=8": lambda Qg, sh: solve_qp_batch_waves(Qg, settings, sh,
-                                                       waves=8),
-        "c2f(8)": lambda Qg, sh: solve_qp_batch_c2f(Qg, settings, sh,
-                                                    coarse=8)}
-    runs = {k: [] for k in protos}
-    for rep in range(1, 4):  # fresh grids, each protocol in turn
-        Qg, sh = frontier_batch(Q, grid(torch, rep, B_BIG))
-        for name, fn in protos.items():
-            ms, r = timed(torch, lambda: fn(Qg, sh))
-            check_solution(torch, r, Qg, B_BIG, f"timed {name} B={B_BIG}")
-            runs[name].append(ms)
-    for B, tag in ((B_AUTO, "auto B=2048 (plain)"),
-                   (B_MID, "auto B=4096 (compact)")):
-        for rep in range(1, 4):
-            Qg, sh = frontier_batch(Q, grid(torch, rep, B))
-            ms, r = timed(torch, lambda: auto(Qg, sh))
-            check_solution(torch, r, Qg, B, f"timed {tag}")
-            runs.setdefault(tag, []).append(ms)
-    rates = {}
-    for name, ms in runs.items():
-        B = B_AUTO if "2048" in name else B_MID if "4096" in name else B_BIG
-        best = min(ms)
-        rates[name] = {"B": B, "qp_per_s": B / (best / 1e3), "ms": ms}
-        log("main", f"{name} N={N_MAIN} B={B} f32: best {best:.1f} ms/batch"
-            f" = {rates[name]['qp_per_s']:.1f} QP/s (runs "
-            f"{', '.join(f'{m:.1f}' for m in ms)} ms) on {card}")
-    return res_auto, res_big, counters, rates
+    # the coarse-to-fine protocol, which no rule picks, on the same batch
+    run_route(torch, lambda Qg: solve_qp_batch_c2f(Qg, settings, sharedB,
+                                                   coarse=8),
+              QbB, B_BIG, "c2f(8) B=8192", counters)
+    return res_auto, res_big, counters
 
 
 def phase_audit(torch, res, B, tag="audit"):
@@ -809,14 +794,13 @@ def objgap(Q, x, x64):
     return (f(x.double()) - f64).abs() / f64.abs().clamp(min=1.0)
 
 
-def phase_refined(torch, card):
+def phase_refined(torch):
     """The refined tier on the frontier problem in float64 at N=512, B=256:
     float32 search, refinement against the float64 data (CG and LU), each
     against the plain float64 solve on the card: max |x - x64| < 1e-9 where
     the search's labels are the float64 solve's, objective gap < 1e-6 on
-    every instance, and the two tiers within 1e-9 of each other;
-    the time of one batched float64 LU factorization of the refined
-    system's shape; one double-double continuation at N=32."""
+    every instance, and the two tiers within 1e-9 of each other; one
+    double-double continuation at N=32."""
     from ssqp_tpu_torch import Settings
     from ssqp_tpu_torch.parallel.batch import (
         frontier_batch, solve_qp_batch, solve_qp_batch_refined)
@@ -824,17 +808,13 @@ def phase_refined(torch, card):
 
     Q, _, _ = bench_problem(torch, torch.float64, N=N_REF)
     Qb, sh = frontier_batch(Q, grid(torch, 0, B_REF, torch.float64))
-    ms64, r64 = timed(torch, lambda: solve_qp_batch(Qb, Settings(),
-                                                    shared=sh))
+    r64 = solve_qp_batch(Qb, Settings(), shared=sh)
     if int((r64.status > 0).sum()) != B_REF:
         raise RuntimeError("refined: the plain float64 solve failed")
-    out = {"plain_f64_ms": ms64}
-    counters, xs = {}, {}
+    out, counters, xs = {}, {}, {}
     for method in ("cg", "lu"):
-        fn = lambda: solve_qp_batch_refined(
-            Qb, search_dtype=torch.float32, shared=sh, method=method)
-        _, counters[method] = counted(torch, fn)  # also the warm-up
-        ms, r = timed(torch, fn)
+        r, counters[method] = counted(torch, lambda: solve_qp_batch_refined(
+            Qb, search_dtype=torch.float32, shared=sh, method=method))
         # the refinement solves the search's labeled active set: it meets
         # the float64 solve's x to 1e-9 where the float32 search labeled as
         # float64 does; where the search's polish pinned a variable within
@@ -844,7 +824,7 @@ def phase_refined(torch, card):
         dx = (r.x - r64.x).abs().amax(1)
         gap = objgap(Qb, r.x, r64.x)
         solved = int((r.status > 0).sum())
-        o = {"ms": ms, "solved": solved, "labels_as_f64": int(same.sum()),
+        o = {"solved": solved, "labels_as_f64": int(same.sum()),
              "max_abs_dx_same_labels": float(dx[same].max()),
              "max_abs_dx_other_labels": float(dx[~same].max())
              if bool((~same).any()) else 0.0,
@@ -855,8 +835,7 @@ def phase_refined(torch, card):
             f"labels as the f64 solve's on {o['labels_as_f64']}, there "
             f"max|x - x64| {o['max_abs_dx_same_labels']:.3e} (bar 1e-9); "
             f"elsewhere {o['max_abs_dx_other_labels']:.3e}; max objective "
-            f"gap {o['max_objgap']:.3e}; {ms:.1f} ms, launches "
-            f"{counters[method]}; plain f64 solve {ms64:.1f} ms; on {card}")
+            f"gap {o['max_objgap']:.3e}; launches {counters[method]}")
         if (solved != B_REF or not o["max_abs_dx_same_labels"] < 1e-9
                 or not o["max_objgap"] < 1e-6
                 or counters[method]["cg_rows"] <= 0):
@@ -866,14 +845,6 @@ def phase_refined(torch, card):
     log("refined", f"CG and LU tiers agree to {agree:.3e} (bar 1e-9)")
     if not agree < 1e-9:
         raise RuntimeError(f"refined: CG and LU differ by {agree:.3e}")
-    n = N_REF + 1  # the refined system: N + M + J rows
-    K = torch.randn(B_REF, n, n, dtype=torch.float64, device="cuda") \
-        + n * torch.eye(n, dtype=torch.float64, device="cuda")
-    lu_ms = [timed(torch, lambda: torch.linalg.lu_factor_ex(K))[0]
-             for _ in range(3)]
-    out["lu_factor_ms"] = lu_ms
-    log("refined", f"torch.linalg.lu_factor_ex at ({B_REF}, {n}, {n}) "
-        f"float64: {', '.join(f'{m:.2f}' for m in lu_ms)} ms on {card}")
 
     Qd, _, _ = bench_problem(torch, torch.float64, N=N_DD)
     rd, lo = solve_qp_refined_dd(dataclasses.replace(Qd, q=-0.5 * Qd.q))
@@ -929,7 +900,7 @@ def check_ineq(torch, res, Q, B, tag):
     return eq, ineq, box
 
 
-def phase_ineq(torch, card):
+def phase_ineq(torch):
     from ssqp_tpu_torch import Settings
     from ssqp_tpu_torch.parallel.batch import (
         _tail_resid_bound, batch_kkt_resid, solve_qp_batch,
@@ -943,10 +914,8 @@ def phase_ineq(torch, card):
     # float64
     if not (Q.N >= 512 and Q.V.dtype == torch.float32):
         raise RuntimeError("ineq problem is outside the tail route's rule")
-    t0 = time.perf_counter()
     res, launches = counted(
         torch, lambda: solve_qp_batch_auto(Q, settings, INEQ_SHARED))
-    wall = time.perf_counter() - t0
     if min(launches["cg_rows"], launches["chol_solve"]) <= 0:
         raise RuntimeError(f"ineq path missed a kernel: launches {launches}")
     eq, ineq, box = check_ineq(torch, res, Q, B, "ineq")
@@ -968,33 +937,8 @@ def phase_ineq(torch, card):
         f"residual bound, x changed on {changed}; inequality rows EO "
         f"{int(eo.min())}-{int(eo.max())}, binding {int(binding.min())}-"
         f"{int(binding.max())}, max |gamma| on free x {gam_free:.3f}; "
-        f"feasibility eq {eq:.1e} ineq {ineq:.1e} box {box:.1e}; first "
-        f"batch {wall:.2f} s host wall")
-    # each fresh grid through the entry point, then its search alone
-    # (solve_qp_batch): the difference is the tail's cost
-    ms, search_ms = [], []
-    for seed in (5, 6, 7):
-        Qg = ineq_problem(torch, torch.float32, seed, B)
-        for fn, out in (
-                (lambda: solve_qp_batch_auto(Qg, settings, INEQ_SHARED), ms),
-                (lambda: solve_qp_batch(Qg, settings, shared=INEQ_SHARED),
-                 search_ms)):
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            r = fn()
-            end.record()
-            end.synchronize()
-            out.append(start.elapsed_time(end))
-            check_ineq(torch, r, Qg, B, f"timed q seed {seed}")
-    best = min(ms)
-    rate = B / (best / 1e3)
-    log("ineq", f"N={N_INEQ} J={J_INEQ} B={B} f32: best {best:.1f} ms/batch "
-        f"= {rate:.1f} QP/s (runs {', '.join(f'{m:.1f}' for m in ms)} ms; "
-        f"search alone {', '.join(f'{m:.1f}' for m in search_ms)} ms) "
-        f"on {card}")
-    return res, launches, rate
+        f"feasibility eq {eq:.1e} ineq {ineq:.1e} box {box:.1e}")
+    return res, launches
 
 
 def phase_ineq_audit(torch, res):
@@ -1126,22 +1070,6 @@ def lp_feasibility(torch, P, x):
     return torch.maximum(torch.maximum(eq, ineq), box) / scale
 
 
-def count_syncs(torch, fn):
-    """(result, host syncs) of one call: the synchronizing CUDA calls that
-    torch's sync debug mode reports while ``fn`` runs."""
-    import warnings
-
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode(1)
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    n = sum("synchroniz" in str(w.message) for w in caught)
-    return out, n
-
-
 def highs_check(P, res64, idx):
     """The port's float64 objective against scipy's HiGHS on instances
     ``idx``; returns the largest relative difference."""
@@ -1211,11 +1139,10 @@ LP_ROUTES = (("mixed B=256 (plain)", "mixed", B_LP, "solve_lp_batch"),
               "solve_lp_batch_cclp"))
 
 
-def phase_lp(torch, card):
+def phase_lp(torch):
     """BASELINE config 2's LP routes on the card (module docstring)."""
     from ssqp_tpu_torch import Settings
     from ssqp_tpu_torch.parallel import batch
-    from ssqp_tpu_torch.parallel.batch import solve_lp_batch
 
     s32 = Settings.for_dtype(torch.float32)
     s64 = Settings()
@@ -1226,10 +1153,7 @@ def phase_lp(torch, card):
         spies = {n: Spy(batch, n, lambda a, k: True) for n in (
             "solve_lp_batch", "solve_lp_batch_waves",
             "solve_lp_batch_waves_rhs", "solve_lp_batch_cclp")}
-        t0 = time.perf_counter()
-        (res, syncs), launches = counted(
-            torch, lambda: count_syncs(torch, lambda: fn(P, s32, sh)))
-        wall = time.perf_counter() - t0
+        res, launches = counted(torch, lambda: fn(P, s32, sh))
         called = [n for n, sp in spies.items() if sp.calls]
         for sp in spies.values():
             sp.undo()
@@ -1241,53 +1165,24 @@ def phase_lp(torch, card):
         if R >= 16 and launches["chol_by_shape"].get((B, R, 1), 0) <= 0:
             raise RuntimeError(f"{tag}: no Cholesky kernel launch at "
                                f"({B}, {R}, 1): {launches}")
-        if syncs <= 0:
-            raise RuntimeError(f"{tag}: the sync count read 0")
         counters[tag] = launches
         P64 = P.astype(torch.float64)
         res64 = fn(P64, s64, sh)
         hist, rel, feas = check_lp(torch, tag, P, res, P64, res64)
         idx = np.linspace(0, B - 1, LP_N_HIGHS).astype(int)
         highs = highs_check(P64, res64, idx)
-        # the LP/s: best of 3 fresh batches; the c-grid and rhs grid time
-        # the plain protocol beside the rule's waves, in turns
-        timed_fns = {"auto": fn}
-        if route in ("cgrid", "rhs"):
-            timed_fns["plain"] = lambda P_, s, sh_: solve_lp_batch(
-                P_, s, shared=sh_)
-        runs = {k: [] for k in timed_fns}
-        for i in range(1, 4):
-            Pi, _ = lp_problem(torch, torch.float32, route, i, B)
-            for k, f in timed_fns.items():
-                ms, r = timed(torch, lambda: f(Pi, s32, sh))
-                st = r.status.cpu().numpy()
-                if not np.isin(st, (1, 2)).all():
-                    raise RuntimeError(f"{tag} timed {k} batch {i}: "
-                                       f"statuses {np.unique(st)}")
-                runs[k].append(ms)
-        rates = {k: B / (min(v) / 1e3) for k, v in runs.items()}
-        out[tag] = {"B": B, "lp_per_s": rates["auto"], "ms": runs["auto"],
+        out[tag] = {"B": B,
                     "solved": int(np.isin(res.status.cpu().numpy(),
                                           (1, 2)).sum()),
-                    "status_hist": hist, "host_syncs": syncs,
+                    "status_hist": hist,
                     "launches": {k: v for k, v in launches.items()
                                  if k != "chol_by_shape"},
                     "max_rel_f32_f64": rel, "max_feas": feas,
                     "max_rel_highs": highs}
-        if "plain" in runs:
-            out[tag]["plain_ms"] = runs["plain"]
-            out[tag]["plain_lp_per_s"] = rates["plain"]
         log("lp", f"{tag} f32: solved {out[tag]['solved']}/{B}, statuses "
-            f"{hist}, launches {launches}, host syncs {syncs}; f32 vs f64 "
-            f"objective {rel:.2e} (bar {LP_F32_REL}), feasibility "
-            f"{feas:.1e}, f64 vs HiGHS {highs:.2e} on {len(idx)} (bar "
-            f"{LP_HIGHS_REL}); first batch {wall:.2f} s host wall; best "
-            f"{min(runs['auto']):.1f} ms = {rates['auto']:.1f} LP/s (runs "
-            f"{', '.join(f'{m:.1f}' for m in runs['auto'])} ms)"
-            + (f"; plain best {min(runs['plain']):.1f} ms = "
-               f"{rates['plain']:.1f} LP/s (runs "
-               f"{', '.join(f'{m:.1f}' for m in runs['plain'])} ms)"
-               if "plain" in runs else "") + f" on {card}")
+            f"{hist}, launches {launches}; f32 vs f64 objective {rel:.2e} "
+            f"(bar {LP_F32_REL}), feasibility {feas:.1e}, f64 vs HiGHS "
+            f"{highs:.2e} on {len(idx)} (bar {LP_HIGHS_REL})")
     return out, counters
 
 
@@ -1325,12 +1220,10 @@ def audit_sweep(torch, tag, fr, V, rets, grid, mu, idx):
     return float(((f32 - f64).abs() / f64.abs().clamp(min=1.0)).max())
 
 
-def phase_outer_sweeps(torch, card):
+def phase_outer_sweeps(torch):
     """11a: the five frontier sweeps on bench.py's problem in float32."""
     from ssqp_tpu_torch import Settings
     from ssqp_tpu_torch.models import frontier as tf
-    from ssqp_tpu_torch.parallel.batch import (
-        frontier_batch, solve_qp_batch, solve_qp_batch_waves)
 
     s32 = Settings.for_dtype(torch.float32)
     Q, _, _ = bench_problem(torch, torch.float32)
@@ -1385,59 +1278,26 @@ def phase_outer_sweeps(torch, card):
         gap = audit_sweep(torch, tag, fr, V, rets, g0, mu, idx)
         if not gap < 1e-6:
             raise RuntimeError(f"{tag}: objective gap {gap:.3e} >= 1e-6")
-        Qb = (tf._with_mu_row(Q, rets, g0) if mu else
-              tf._with_q(Q, -g0.unsqueeze(1) * rets.unsqueeze(0)))
-        restore_ms = timed(torch, lambda: tf._restore_rows(
-            Qb, fr.x, fr.S, fr.status))[0]
-        # fresh grids; the batch and waves sweeps in turns with the
-        # protocol call they wrap, on the same grid
-        proto = {"batch": lambda Qg, sh: solve_qp_batch(Qg, s32, shared=sh),
-                 "waves=8": lambda Qg, sh: solve_qp_batch_waves(
-                     Qg, s32, sh, waves=8)}.get(name)
-        runs, proto_runs = [], []
-        for i in range(1, 4):
-            gi = make(i, B)
-            ms, r = timed(torch, lambda: fn(Q, rets, gi, s32, **kw))
-            if int((r.status > 0).sum()) != B:
-                raise RuntimeError(f"{tag}: timed grid {i} not all solved")
-            runs.append(ms)
-            if proto is not None:
-                Qg, sh = frontier_batch(Q, gi)
-                proto_runs.append(timed(torch, lambda: proto(Qg, sh))[0])
-        best = min(runs)
         st = fr.status.float()
-        o = {"B": B, "qp_per_s": B / (best / 1e3), "ms": runs,
-             "cg_launches": launches["cg_rows"], "audited": int(idx.numel()),
-             "max_objgap": gap, "max_ret_err": ret_err,
-             "max_risk_err": risk_err,
+        o = {"B": B, "cg_launches": launches["cg_rows"],
+             "audited": int(idx.numel()), "max_objgap": gap,
+             "max_ret_err": ret_err, "max_risk_err": risk_err,
              "s_iters_median": float(st.median()),
-             "s_iters_max": float(st.max())}
-        o["max_budget_err"] = budget_err
-        o["restore_rows_ms"] = restore_ms
+             "s_iters_max": float(st.max()),
+             "max_budget_err": budget_err}
         if mu:
             o["max_row_err"] = row_err
-        if proto_runs:
-            o["protocol_ms"] = proto_runs
-        if "warm" in name:
-            o["ms_per_point"] = best / B
         out[name], counters[tag], results[name] = o, launches, (fr, g0)
         log("outer", f"{tag} f32: solved {solved}/{B}, CG launches "
             f"{launches['cg_rows']}, S-iterations med {o['s_iters_median']:.0f}"
             f" max {o['s_iters_max']:.0f}, f64 audit on {o['audited']}: "
             f"max objgap {gap:.3e}; 1'x - 1 {budget_err:.1e}; ret/risk vs x "
             f"{ret_err:.1e}/"
-            f"{risk_err:.1e}" + (f", r'x - mu {row_err:.1e}" if mu else "")
-            + f"; best {best:.1f} ms = {o['qp_per_s']:.1f} QP/s, of which "
-            f"the rows' restoration {restore_ms:.2f} ms"
-            + (f" ({o['ms_per_point']:.2f} ms/point)" if "warm" in name
-               else "") + f" (runs {', '.join(f'{m:.1f}' for m in runs)} "
-            f"ms" + (f"; the protocol alone in turns: "
-                     f"{', '.join(f'{m:.1f}' for m in proto_runs)} ms"
-                     if proto_runs else "") + f") on {card}")
+            f"{risk_err:.1e}" + (f", r'x - mu {row_err:.1e}" if mu else ""))
     return out, counters, results
 
 
-def phase_outer_diff(torch, card):
+def phase_outer_diff(torch):
     """11b: solve_qp_diff on 256 frontier points at N=256, backward of
     sum(w x) with respect to q, b and u."""
     from ssqp_tpu_torch.parallel.batch import frontier_batch
@@ -1460,18 +1320,15 @@ def phase_outer_diff(torch, card):
 
         lv = leaves()
         Ql = dataclasses.replace(Qb, **lv)
-        torch.cuda.synchronize()
-        _, launches = counted(torch, lambda: solve_qp_diff(Ql))
-        ms_f, r = timed(torch, lambda: solve_qp_diff(Ql))
+        r, launches = counted(torch, lambda: solve_qp_diff(Ql))
         solved = int((r.status > 0).sum())
         if solved != B_DIFF or launches["cg_rows"] <= 0:
             raise RuntimeError(f"diff {dn}: solved {solved}, {launches}")
-        ms_b, _ = timed(torch, lambda: (w * r.x).sum().backward())
+        (w * r.x).sum().backward()
         grads = {k: t.grad for k, t in lv.items()}
         if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
             raise RuntimeError(f"diff {dn}: non-finite gradient")
-        o = {"B": B_DIFF, "forward_ms": ms_f, "backward_ms": ms_b,
-             "cg_launches": launches["cg_rows"]}
+        o = {"B": B_DIFF, "cg_launches": launches["cg_rows"]}
         counters[f"diff {dn} B={B_DIFF}"] = launches
         if dtype == torch.float64:
             # the envelope identity: grad_q of the optimal value is x*
@@ -1530,14 +1387,13 @@ def phase_outer_diff(torch, card):
             o.update(envelope_err=env, fd_max_rel=worst,
                      failed_instance_zero_grad=zero_ok)
         out[dn] = o
-        log("outer", f"solve_qp_diff N={N_MAIN} B={B_DIFF} {dn}: forward "
-            f"{ms_f:.1f} ms (CG launches {launches['cg_rows']}), backward "
-            f"{ms_b:.1f} ms" + (
+        log("outer", f"solve_qp_diff N={N_MAIN} B={B_DIFF} {dn}: solved "
+            f"{solved}/{B_DIFF}, CG launches {launches['cg_rows']}, "
+            f"gradients finite" + (
                 f"; envelope {o['envelope_err']:.2e} (bar 1e-8), FD over "
                 f"{FD_DIRS} directions on {N_FD} instances "
                 f"{o['fd_max_rel']:.2e} (bar 1e-5), failed instance's "
-                f"gradient exactly 0" if "envelope_err" in o else "")
-            + f" on {card}")
+                f"gradient exactly 0" if "envelope_err" in o else ""))
     return out, counters
 
 
@@ -1597,7 +1453,7 @@ def same_arrays(torch, P1, P2):
                                                 P2.leaves().values()))
 
 
-def phase_outer_model(torch, card, sweep_results):
+def phase_outer_model(torch, sweep_results):
     """11c: config 4 and config 2 through the Model API and the MPS round
     trip; kkt_report; trace()."""
     from ssqp_tpu_torch import Settings, make_qp, solve_qp
@@ -1610,16 +1466,10 @@ def phase_outer_model(torch, card, sweep_results):
     objs = {}
     for dt in (np.float32, np.float64):
         dn = "f32" if dt == np.float32 else "f64"
-        t0 = time.perf_counter()
         m, raw = config4_model(dt)
-        build_s = time.perf_counter() - t0
         term, launches = counted(torch, lambda: m.optimize())
-        t0 = time.perf_counter()
         text = write_mps(m)
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         m2 = read_mps(text, dtype=dt)
-        parse_s = time.perf_counter() - t0
         term2, launches2 = counted(torch, lambda: m2.optimize())
         Qd = make_qp(raw["V"], raw["q"], raw["A"], raw["b"], G=raw["G"],
                      g=raw["g"], d=raw["d"], u=raw["u"], dtype=dt)
@@ -1646,18 +1496,13 @@ def phase_outer_model(torch, card, sweep_results):
         counters[f"mps config4 {dn} (read back)"] = launches2
         out[tag] = {"termination": term, "objective": f1,
                     "rel_vs_solve_qp": rel, "rel_round_trip": rel2,
-                    "arrays_identical": identical, "solve_s": m.solve_time,
-                    "solve_s_read_back": m2.solve_time, "build_s": build_s,
-                    "write_mps_s": write_s, "read_mps_s": parse_s,
-                    "mps_bytes": len(text),
+                    "arrays_identical": identical, "mps_bytes": len(text),
                     "kkt_report": {k: float(v) for k, v in
                                    rep._asdict().items()}}
         log("outer", f"{tag}: {term}, objective {f1:.9g}, vs solve_qp "
             f"{rel:.2e}, after write_mps/read_mps {term2} {rel2:.2e} "
-            f"(arrays identical {identical}); build {build_s:.2f} s, "
-            f"optimize {m.solve_time * 1e3:.1f} ms, write {write_s:.2f} s, "
-            f"parse {parse_s:.2f} s ({len(text)} bytes), launches "
-            f"{launches}; kkt_report {out[tag]['kkt_report']} on {card}")
+            f"(arrays identical {identical}; {len(text)} bytes of MPS), "
+            f"launches {launches}; kkt_report {out[tag]['kkt_report']}")
     gap = abs(objs["f32"] - objs["f64"]) / max(1.0, abs(objs["f64"]))
     out["config4 f32 vs f64 objgap"] = gap
     if not gap < 1e-6:
@@ -1687,11 +1532,10 @@ def phase_outer_model(torch, card, sweep_results):
     counters["solve_mps config2 LP f32"] = lr
     out["model config2 LP f32"] = {"termination": term32, "objective": f32,
                                    "rel_vs_f64": rel,
-                                   "solve_mps_objective": fr,
-                                   "solve_s": m32.solve_time}
+                                   "solve_mps_objective": fr}
     log("outer", f"model config2 LP f32: {term32}, objective {f32:.7g}, vs "
         f"f64 {rel:.2e} (bar 5e-5), solve_mps read-back {fr:.7g}; "
-        f"launches {l32}, solve_mps {lr} on {card}")
+        f"launches {l32}, solve_mps {lr}")
 
     # kkt_report on the batch sweep's results, and a trace of one sweep
     from ssqp_tpu_torch.models import frontier as tf
@@ -1729,7 +1573,7 @@ def _build_root():
     return _build.build_dir()
 
 
-def phase_outer_sharded(torch, card):
+def phase_outer_sharded(torch):
     """11d: a world-size-1 NCCL group (file store under build/): the sharded
     QP solve of config 5's per-card batch equals solve_qp_batch_auto, and the
     sharded LP solve of config 2's mixed batch equals solve_lp_batch_auto."""
@@ -1759,25 +1603,8 @@ def phase_outer_sharded(torch, card):
         if not same or st["solved"] != B_BIG or launches["cg_rows"] <= 0:
             raise RuntimeError(f"sharded QP: identical {same}, stats {st}, "
                                f"launches {launches}")
-        # fresh batches built outside the timed calls; the sharded solve
-        # and the protocol alone on the same batch in turns (ABBA), then
-        # the three all-reduces alone
-        ms, ms_auto = [], []
-        for i in range(1, 5):
-            Qg = frontier_batch(Q, grid(torch, i, B_BIG))[0]
-            calls = [(ms, lambda: solve_qp_sharded(Qg, s32, shared=sh)),
-                     (ms_auto, lambda: solve_qp_batch_auto(Qg, s32, sh))]
-            for dst, fn in (calls if i % 2 else calls[::-1]):
-                dst.append(timed(torch, fn)[0])
-        ops = (dist.ReduceOp.SUM, dist.ReduceOp.MAX, dist.ReduceOp.SUM)
-        red = [v.clone() for v in stats.values()]
-        ms_reduce = min(timed(torch, lambda: [
-            dist.all_reduce(t, op=op) for t, op in zip(red, ops)])[0]
-            for _ in range(3))
         counters[f"sharded QP world=1 B={B_BIG}"] = launches
-        out["qp"] = {"B": B_BIG, "stats": st, "identical": same, "ms": ms,
-                     "auto_ms": ms_auto, "all_reduce_ms": ms_reduce,
-                     "qp_per_s": B_BIG / (min(ms) / 1e3)}
+        out["qp"] = {"B": B_BIG, "stats": st, "identical": same}
         P, shp = lp_problem(torch, torch.float32, "mixed", 0, B_LP)
         (rl, sl), ll = counted(torch, lambda: solve_lp_sharded(P, s32,
                                                                shared=shp))
@@ -1791,41 +1618,35 @@ def phase_outer_sharded(torch, card):
         out["lp"] = {"B": B_LP, "stats": stl, "identical": samel}
         log("outer", f"solve_qp_sharded (NCCL, world 1) N={N_MAIN} "
             f"B={B_BIG}: identical to solve_qp_batch_auto {same}, stats {st},"
-            f" launches {launches}, {', '.join(f'{m:.1f}' for m in ms)} ms "
-            f"(solve_qp_batch_auto in turns: "
-            f"{', '.join(f'{m:.1f}' for m in ms_auto)} ms; the three "
-            f"all-reduces alone {ms_reduce:.3f} ms); "
-            f"solve_lp_sharded config2 mixed B={B_LP}: identical {samel}, "
-            f"stats {stl}, launches {ll} on {card}")
+            f" launches {launches}; solve_lp_sharded config2 mixed "
+            f"B={B_LP}: identical {samel}, stats {stl}, launches {ll}")
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
     return out, counters
 
 
-def phase_outer_warmup(torch, card):
+def phase_outer_warmup(torch):
     """11e: utils/aot.py::warmup at (256, 1, 0) with batch=256."""
     from ssqp_tpu_torch.utils.aot import enable_compilation_cache, warmup
 
     path = enable_compilation_cache()
-    t0 = time.perf_counter()
     n, launches = counted(torch, lambda: warmup(((256, 1, 0),), batch=256))
-    secs = time.perf_counter() - t0
     if n != 2 or launches["cg_rows"] <= 0:
         raise RuntimeError(f"warmup: {n} entry points, launches {launches}")
-    log("outer", f"warmup(((256, 1, 0),), batch=256): {n} entry points in "
-        f"{secs:.2f} s, launches {launches}, kernel cache {path} on {card}")
-    return {"entry_points": n, "seconds": secs}, {
+    log("outer", f"warmup(((256, 1, 0),), batch=256): {n} entry points, "
+        f"launches {launches}, kernel cache {path}")
+    return {"entry_points": n}, {
         "warmup (256, 1, 0) batch=256": launches}
 
 
-def phase_outer(torch, card):
+def phase_outer(torch):
     """Phase 11: the outer layers on the card (module docstring)."""
-    sweeps, c1, results = phase_outer_sweeps(torch, card)
-    diff, c2 = phase_outer_diff(torch, card)
-    model, c3 = phase_outer_model(torch, card, results)
-    sharded, c4 = phase_outer_sharded(torch, card)
-    warm, c5 = phase_outer_warmup(torch, card)
+    sweeps, c1, results = phase_outer_sweeps(torch)
+    diff, c2 = phase_outer_diff(torch)
+    model, c3 = phase_outer_model(torch, results)
+    sharded, c4 = phase_outer_sharded(torch)
+    warm, c5 = phase_outer_warmup(torch)
     counters = {**c1, **c2, **c3, **c4, **c5}
     for route, c in counters.items():
         qp_route = not route.startswith(("model config2", "solve_mps config2",
@@ -1841,19 +1662,7 @@ def phase_outer(torch, card):
 PDAS_FLAGS = ("default", "pdas_pcg", "pdas_cheb")
 
 
-def op_counts(torch, fn):
-    """(result, aten ops, host syncs) of one call: the aten operators that
-    torch.profiler records on the host, and the synchronizing CUDA calls
-    that torch's sync debug mode reports."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        out, syncs = count_syncs(torch, fn)
-    aten = sum(e.name.startswith("aten::") for e in prof.events())
-    return out, aten, syncs
-
-
-def phase_pdas(torch, card):
+def phase_pdas(torch):
     """Phase 12: the frontier (N=256, B=2048, float32) through
     solve_qp_batch_auto (its plain route) with the default PDAS rounds, the
     W-PCG rounds and the Chebyshev rounds; the Chebyshev interval against
@@ -1917,15 +1726,12 @@ def phase_pdas(torch, card):
                 name != "default"):
             raise RuntimeError(f"{tag}: CG launches {launches}, inner "
                                f"solves {per_call}")
-        _, aten, syncs = op_counts(torch,
-                                   lambda: solve_qp_batch_auto(Qb, st, sh))
         results[name], counters[tag] = res, launches
         st_f = res.status.float()
         out[name] = {"pdas_rounds": len(rounds.calls),
                      "round_widths": rounds.calls,
                      "inner_iters_per_round": per_call,
                      "cg_launches": launches["cg_rows"],
-                     "aten_ops": aten, "host_syncs": syncs,
                      "s_iters_median": float(st_f.median()),
                      "s_iters_max": float(st_f.max())}
         log("pdas", f"{tag} f32: solved {B_AUTO}/{B_AUTO}; PDAS rounds "
@@ -1933,9 +1739,8 @@ def phase_pdas(torch, card):
             + (f"{name[5:]} iterations per round {per_call}; "
                if per_call else "")
             + f"CG kernel launches {launches['cg_rows']} "
-            f"{launches['cg_by_body']}; aten ops {aten}, host syncs {syncs};"
-            f" S-iterations med {float(st_f.median()):.0f} max "
-            f"{float(st_f.max()):.0f}")
+            f"{launches['cg_by_body']}; S-iterations med "
+            f"{float(st_f.median()):.0f} max {float(st_f.max()):.0f}")
 
     Q64, _, _ = bench_problem(torch, torch.float64)
     S0 = results["default"].S
@@ -1956,20 +1761,6 @@ def phase_pdas(torch, card):
         if not gap < 1e-6:
             raise RuntimeError(f"pdas {name}: gap {gap:.3e} where S "
                                "differs")
-
-    runs = {k: [] for k in flags}
-    for rep in range(1, 4):  # fresh grids, the three flags in turn
-        Qg, shg = frontier_batch(Q, grid(torch, rep, B_AUTO))
-        for name, st in flags.items():
-            ms, r = timed(torch, lambda: solve_qp_batch_auto(Qg, st, shg))
-            check_solution(torch, r, Qg, B_AUTO, f"timed pdas {name}")
-            runs[name].append(ms)
-    for name, ms in runs.items():
-        best = min(ms)
-        out[name].update(ms=ms, qp_per_s=B_AUTO / (best / 1e3))
-        log("pdas", f"{name} N={N_MAIN} B={B_AUTO} f32: best {best:.1f} ms"
-            f" = {B_AUTO / (best / 1e3):.1f} QP/s (runs "
-            f"{', '.join(f'{m:.1f}' for m in ms)} ms) on {card}")
     return out, counters
 
 
@@ -2009,7 +1800,7 @@ def fine_mu_grid(S, mus_c):
     return fine, n_seg, n_true
 
 
-def phase_config7(torch, card):
+def phase_config7(torch):
     """Phase 13: bench_suite.py::config7 on the card (module docstring)."""
     from ssqp_tpu_torch import Result, Settings, make_qp
     from ssqp_tpu_torch.models import frontier as tf
@@ -2030,24 +1821,20 @@ def phase_config7(torch, card):
         o = {"N": N}
 
         def sweep(tag, fn, grid_):
-            _, launches = counted(torch, lambda: fn(Q32, rets, t32(grid_),
-                                                    s32))
-            ms, fr = timed(torch, lambda: fn(Q32, rets, t32(grid_), s32))
+            fr, launches = counted(torch, lambda: fn(Q32, rets, t32(grid_),
+                                                     s32))
             n = len(grid_)
             solved = int((fr.status > 0).sum())
             st = fr.status.float()
-            o[tag] = {"points": n, "solved": solved, "ms": ms,
-                      "ms_per_point": ms / n,
+            o[tag] = {"points": n, "solved": solved,
                       "s_iters": int(fr.status.clamp(min=0).sum()),
                       "s_iters_median": float(st.median()),
                       "s_iters_max": float(st.max()),
                       "cg_launches": launches["cg_rows"]}
             counters[f"config7 {name} {tag}"] = launches
-            log("config7", f"{name} {tag}: solved {solved}/{n}, {ms:.1f} ms"
-                f" ({ms / n:.2f} ms/point), S-iterations "
+            log("config7", f"{name} {tag}: solved {solved}/{n}, S-iterations "
                 f"{o[tag]['s_iters']} (med {float(st.median()):.0f}, max "
-                f"{float(st.max()):.0f}), CG launches "
-                f"{launches['cg_rows']} on {card}")
+                f"{float(st.max()):.0f}), CG launches {launches['cg_rows']}")
             if solved != n or launches["cg_rows"] <= 0:
                 raise RuntimeError(f"config7 {name} {tag}: solved "
                                    f"{solved}/{n}, launches {launches}")
@@ -2080,12 +1867,10 @@ def phase_config7(torch, card):
         ti = torch.tensor(idx, device="cuda")
         res_in = Result(fm.x[ti].double(), fm.S[ti], fm.status[ti])
         Qmu = tf._with_mu_row(Q64, rets64, mus_a)
-        ms_ref, rr = timed(torch, lambda: refine_result(
-            Qmu, res_in, s64, 2, with_duals=False))
+        rr = refine_result(Qmu, res_in, s64, 2, with_duals=False)
         Vd = Q64.V
         fobj = lambda X: 0.5 * (X * (X @ Vd)).sum(1)
         fz = fobj(ref.x)
-        o["refine_ms"] = ms_ref
         for tag, X in (("f32", res_in.x), ("refined", rr.x)):
             gaps = ((fobj(X) - fz).abs() / fz.abs().clamp(min=1.0))
             xinf = (X - ref.x).abs().amax(1)
@@ -2094,8 +1879,6 @@ def phase_config7(torch, card):
             log("config7", f"{name} {tag} ({C7_AUDIT} f64 refs on the "
                 f"card): objgap {o[f'{tag}_objgap']} xinf "
                 f"{o[f'{tag}_xinf']}")
-        log("config7", f"{name}: refine_result (LU, f64) of {C7_AUDIT} "
-            f"points {ms_ref:.1f} ms")
         if not o["refined_objgap"]["max"] < 1e-6:
             raise RuntimeError(f"config7 {name}: refined gap "
                                f"{o['refined_objgap']['max']:.3e} >= 1e-6")
@@ -2106,10 +1889,9 @@ def phase_config7(torch, card):
 # ---- phase 14: bench_suite.py::config8 --------------------------------
 
 
-def phase_config8(torch, card, ktimes):
+def phase_config8(torch):
     """Phase 14: bench_suite.py::config8's frontier at N=512 and 1024,
-    B=8192, float32, through solve_qp_batch_auto (module docstring);
-    ``ktimes`` are phase 3's kernel times."""
+    B=8192, float32, through solve_qp_batch_auto (module docstring)."""
     from ssqp_tpu_torch import Settings
     from ssqp_tpu_torch.parallel import batch
     from ssqp_tpu_torch.parallel.batch import (
@@ -2123,28 +1905,23 @@ def phase_config8(torch, card, ktimes):
         B = C8_B
         Qb, sh = frontier_batch(Q, grid(torch, 0, B))
         # the tail's raw search result (the waves protocol's) and each
-        # refinement pass's width and time
-        raw, passes = [], []
+        # refinement pass's width
+        raw = []
 
         def search(real, a, k):
             raw.append(real(*a, **k))
             return raw[-1]
 
-        def refine_pass(real, a, k):
-            ms, r = timed(torch, lambda: real(*a, **k))
-            passes.append((int(a[1].x.shape[0]), ms))
-            return r
-
         spies = (Spy(batch, "solve_qp_batch_waves", run=search),
-                 Spy(refine, "refine_result_cg", run=refine_pass))
+                 Spy(refine, "refine_result_cg",
+                     lambda a, k: int(a[1].x.shape[0])))
         try:
-            res = solve_qp_batch_auto(Qb, s32, sh)
-            torch.cuda.synchronize()
+            res, launches = counted(
+                torch, lambda: solve_qp_batch_auto(Qb, s32, sh))
         finally:
             for spy in spies:
                 spy.undo()
-        # the launches of the same batch, counted apart from the pass times
-        _, launches = counted(torch, lambda: solve_qp_batch_auto(Qb, s32, sh))
+        passes = spies[1].calls
         tag = f"config8 N={N} B={B}"
         check_solution(torch, res, Qb, B, tag)
         if len(raw) != 1 or launches["cg_rows"] <= 0:
@@ -2154,57 +1931,33 @@ def phase_config8(torch, card, ktimes):
         raw = raw[0]
         changed = int((res.x != raw.x).any(1).sum())
         o = {"route": "waves=8 + tail (4)", "tail_passes": passes,
-             "tail_instances": sum(w for w, _ in passes),
-             "tail_ms": sum(ms for _, ms in passes),
+             "tail_instances": sum(passes),
              "tail_accepted": changed, "cg_launches": launches["cg_rows"],
              "cg_by_body": launches["cg_by_body"]}
         counters[tag] = launches
         log("config8", f"{tag} f32 through solve_qp_batch_auto: waves=8 + "
-            f"the tail; solved {B}/{B}; tail passes (instances, ms) "
+            f"the tail; solved {B}/{B}; tail passes (instances) "
             f"{passes}, accepted corrections {changed}; CG launches "
             f"{launches['cg_rows']} by body {launches['cg_by_body']}")
-        runs = []
-        for rep in range(1, 4):  # fresh grids
-            Qg, shg = frontier_batch(Q, grid(torch, rep, B))
-            ms, r = timed(torch, lambda: solve_qp_batch_auto(Qg, s32, shg))
-            check_solution(torch, r, Qg, B, f"timed {tag}")
-            runs.append(ms)
-        best = min(runs)
-        o.update(ms=runs, qp_per_s=B / (best / 1e3))
-        log("config8", f"{tag} f32: best {best:.1f} ms = "
-            f"{o['qp_per_s']:.1f} QP/s (runs "
-            f"{', '.join(f'{m:.1f}' for m in runs)} ms) on {card}")
 
         # the audit: C8_AUDIT instances of grid 0 in float64 on the card
         Q64, _, _ = bench_problem(torch, torch.float64, N=N)
         idx = torch.linspace(0, B - 1, C8_AUDIT, device="cuda").long()
         Qa, sha = frontier_batch(Q64, grid(torch, 0, B).double()[idx])
-        ms64, r64 = timed(torch, lambda: solve_qp_batch(Qa, Settings(),
-                                                        shared=sha))
+        r64 = solve_qp_batch(Qa, Settings(), shared=sha)
         if not bool((r64.status > 0).all()):
             raise RuntimeError(f"{tag}: the float64 audit solve failed")
         gaps = objgap(Qa, res.x[idx], r64.x).cpu().numpy()
         raw_gaps = objgap(Qa, raw.x[idx], r64.x).cpu().numpy()
         o.update(audit_objgap=quantiles(gaps),
-                 audit_objgap_before_tail=quantiles(raw_gaps),
-                 audit_f64_ms=ms64)
-        log("config8", f"{tag}: f64 on the card ({C8_AUDIT} refs, "
-            f"{ms64:.1f} ms): objgap after the tail {quantiles(gaps)}; "
-            f"before it {quantiles(raw_gaps)}")
+                 audit_objgap_before_tail=quantiles(raw_gaps))
+        log("config8", f"{tag}: f64 on the card ({C8_AUDIT} refs): objgap "
+            f"after the tail {quantiles(gaps)}; before it "
+            f"{quantiles(raw_gaps)}")
         if not gaps.max() < 1e-6:
             raise RuntimeError(f"{tag}: objective gap {gaps.max():.3e} >= "
                                "1e-6")
         out[f"N={N}"] = o
-    for label, C, N, steps in CG_TIMED[3:] + CG_TIMED_F64:
-        t = ktimes[label]
-        log("config8", f"CG kernel at {label}, N={N}, {steps} steps (phase "
-            f"3): {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms; bound "
-            + (f"3xTF32 {t['bound_3xtf32_ms']:.3f} ms, FFMA "
-               f"{t['bound_ffma_ms']:.3f} ms" if "bound_ffma_ms" in t
-               else f"DMMA {t['bound_ms']:.3f} ms, DFMA "
-               f"{t['bound_dfma_ms']:.3f} ms") + f" on {card}")
-    out["cg_kernel"] = {label: ktimes[label]
-                        for label, *_ in CG_TIMED[3:] + CG_TIMED_F64}
     return out, counters
 
 
@@ -2249,17 +2002,17 @@ def main():
 
     worst, ktimes, exits = wall(phase_kernel)
     chol_worst, ctimes = wall(phase_chol)
-    res_auto, res_big, main_launches, rates = wall(phase_main, card)
+    res_auto, res_big, main_launches = wall(phase_main)
     wall(phase_audit, res_auto, B_AUTO)
     wall(phase_audit, res_big, B_BIG)
-    res_ineq, ineq_launches, ineq_rate = wall(phase_ineq, card)
+    res_ineq, ineq_launches = wall(phase_ineq)
     wall(phase_ineq_audit, res_ineq)
-    refined, ref_launches = wall(phase_refined, card)
-    lp, lp_launches = wall(phase_lp, card)
-    outer, outer_launches = wall(phase_outer, card)
-    pdas, pdas_launches = wall(phase_pdas, card)
-    c7, c7_launches = wall(phase_config7, card)
-    c8, c8_launches = wall(phase_config8, card, ktimes)
+    refined, ref_launches = wall(phase_refined)
+    lp, lp_launches = wall(phase_lp)
+    outer, outer_launches = wall(phase_outer)
+    pdas, pdas_launches = wall(phase_pdas)
+    c7, c7_launches = wall(phase_config7)
+    c8, c8_launches = wall(phase_config8)
 
     routes = dict(main_launches)
     routes["ineq auto B=256 (plain + tail)"] = ineq_launches
@@ -2273,7 +2026,7 @@ def main():
              for k in ("cg_rows", "chol_solve")}
     by_body = {route: c["cg_by_body"] for route, c in routes.items()
                if c.get("cg_by_body")}
-    print(json.dumps({"protocols": rates, "refined": refined, "lp": lp,
+    print(json.dumps({"refined": refined, "lp": lp,
                       "outer": outer, "pdas": pdas, "config7": c7,
                       "config8": c8, "wall_s": walls}))
     head = ktimes[CG_TIMED[0][0]]

@@ -69,9 +69,9 @@ def auto_protocol(N: int, B: int, q_only: bool) -> int:
     """The waves dispatch rule of the JAX package, verbatim: waves=8 iff the
     grid is q-only and the wave width B/8 is at least 1024. The rule was
     tuned on TPU measurements (see the JAX docstring). On an H100 the plain
-    protocol beat waves=8 at every one of those cells (PERF.md,
-    ``profile_port.py protocols``); retuning the rule is left to a
-    performance change."""
+    protocol beat waves=8 at every one of those cells (the figures PERF.md
+    §6 records); retuning the rule needs a benchmark cell that serves such
+    grids."""
     return 8 if (q_only and B % 8 == 0 and B // 8 >= 1024) else 0
 
 
@@ -568,8 +568,9 @@ def solve_lp_batch_auto(P: LP, settings: Settings = None, shared: tuple = (),
     ``waves=None`` applies the rule (8 where the family allows it, 8
     divides the batch and the wave width B/8 is at least 4); an explicit
     value forces it; ``waves=0`` forces the plain batch. The rule was tuned
-    on TPU measurements; ``chip_smoke.py`` times the routes side by side on
-    a GPU (PERF.md). The route taken runs inside the span
+    on TPU measurements; the H100 figures of the routes side by side are
+    those PERF.md §6 records, and retuning the rule needs a benchmark cell
+    that serves such grids. The route taken runs inside the span
     ``ssqp.lp_route.<waves|waves_rhs|plain>``."""
     settings = settings or Settings.for_dtype(P.c.dtype)
     sh = set(shared)

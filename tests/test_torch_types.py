@@ -194,9 +194,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     bad = [(p.name, m) for p in files for m in _imports(p)
            if m.split(".")[0] in ("jax", "jaxlib", "ssqp_tpu")]
     assert not bad, bad
-    scripts = [PORT.parent / s for s in ("chip_smoke.py", "profile_port.py")]
+    scripts = [PORT.parent / "chip_smoke.py"]
     scripts += sorted((PORT.parent / "examples").glob("torch_*.py"))
-    assert len(scripts) >= 8
+    assert len(scripts) >= 7
     for script in scripts:
         assert not [m for m in _imports(script)
                     if m.split(".")[0] in ("jax", "jaxlib", "ssqp_tpu")], \
@@ -204,8 +204,8 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 
 def test_port_and_chip_smoke_import_with_jax_blocked():
-    """Import every port module, chip_smoke.py and profile_port.py in a
-    process where any import of jax or of the JAX package fails."""
+    """Import every port module and chip_smoke.py in a process where any
+    import of jax or of the JAX package fails."""
     root = PORT.parent
     mods = sorted(".".join(p.relative_to(root).with_suffix("").parts)
                   for p in PORT.rglob("*.py"))
@@ -213,7 +213,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         "import sys, importlib\n"
         "for m in ('jax', 'jaxlib', 'ssqp_tpu'): sys.modules[m] = None\n"
         f"for m in {mods!r}: importlib.import_module(m.removesuffix('.__init__'))\n"
-        "import chip_smoke, profile_port\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ssqp_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
