@@ -1,7 +1,7 @@
 """At-scale checks of the PyTorch/CUDA port (ssqp_tpu_torch) on one NVIDIA
-GPU, and the two hand-written kernels' table: each kernel against its plain
+GPU, and the hand-written kernels' table: each kernel against its plain
 version, its device time beside the plain version's, a library yardstick
-and its bound, and ptxas's registers and spills.
+(where one exists) and its bound, and ptxas's registers and spills.
 
     python3 chip_smoke.py
 
@@ -34,31 +34,39 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   the plain version and of the library pair (cholesky_ex +
                   cholesky_solve) at the ineq path's five shapes and the
                   LP path's two;
-  5. main       — the frontier-QP path through solve_qp_batch_auto at
+  5. simplex    — the simplex kernel (ops/csrc/simplex.cu) against the
+                  host loop on the same card tensors at lp-mixed256's shape
+                  (config 2's mixed batch, B=256, R=25, Nt=245), Phase 1 and
+                  Phase 2 of four batches in float32 and in float64; its
+                  launches through solve_lp_batch_auto (one a phase) and
+                  the registry's simplex.launches record; the times of one
+                  batch's two launches (CUDA events), of the host loop
+                  (host clock) and the bound from the FMA count;
+  6. main       — the frontier-QP path through solve_qp_batch_auto at
                   N=256, float32, on each route the JAX rule picks: B=2048
                   (plain), B=8192 (waves=8, checked) and B=4096 (PDAS
                   compaction (2, 4, 8), checked), and the B=8192 batch
                   through solve_qp_batch_c2f (coarse=8), with the kernels'
                   launch counts per route, the S-iterations per wave and
                   the instances the waves' rescue re-solved;
-  6. audit      — 256 instances each of the B=2048 (plain) and B=8192
+  7. audit      — 256 instances each of the B=2048 (plain) and B=8192
                   (waves) batches re-solved in float64 on the card;
                   objective gap and ||x - z||_inf quantiles, max gap < 1e-6;
-  7. ineq       — the general-inequality path at BASELINE config 4's widths
+  8. ineq       — the general-inequality path at BASELINE config 4's widths
                   (N=512, M=10, J=100, float32, B_INEQ instances with shared
                   V, A, b, G, g, d, u and varying q) through
                   solve_qp_batch_auto, which takes the plain protocol and the
                   tail refinement; feasibility, launch counts, S-iterations
                   and how many instances the tail refined;
-  8. ineq-audit — 32 of those instances re-solved in float64 on the card;
+  9. ineq-audit — 32 of those instances re-solved in float64 on the card;
                   objective gap and ||x - z||_inf quantiles, max gap < 1e-6;
-  9. refined    — the frontier problem in float64 at N=512, B=256 through
+ 10. refined    — the frontier problem in float64 at N=512, B=256 through
                   solve_qp_batch_refined (float32 search) with method "cg"
                   and "lu": within 1e-9 of the plain float64 solve on the
                   card where the search labeled as float64 does, objective
                   gap < 1e-6 everywhere, the tiers within 1e-9 of each
                   other; one solve_qp_refined_dd at N=32;
- 10. lp         — BASELINE config 2's LP routes (bench_suite.py::config2's
+ 11. lp         — BASELINE config 2's LP routes (bench_suite.py::config2's
                   generators, float32): the mixed batch (c, b, g per
                   instance) at B=256 and 4096 through solve_lp_batch_auto
                   (plain), the c-grid (waves=8) and the rhs grid (dual
@@ -69,7 +77,7 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   float32 within 5e-5 of the port's float64 solve on the
                   card, and 32 instances of that within 1e-7 of scipy's
                   HiGHS;
- 11. outer      — the outer layers on bench.py's frontier problem and the
+ 12. outer      — the outer layers on bench.py's frontier problem and the
                   BASELINE configs, float32 unless said: (a) the five
                   frontier sweeps (batch B=2048, waves=8 B=8192, warm over
                   128 points, mu B=2048 and mu warm over 128 points, the mu
@@ -97,7 +105,7 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   config 2's mixed batch at B=256 identical to
                   solve_lp_batch_auto; (e) warmup(((256, 1, 0),), batch=256).
                   Every phase-11 QP route launches the CG kernel;
- 12. pdas       — the PDAS rounds' variants (Settings.pdas_pcg, the W-PCG,
+ 13. pdas       — the PDAS rounds' variants (Settings.pdas_pcg, the W-PCG,
                   and Settings.pdas_cheb, the Chebyshev semi-iteration)
                   against the default rounds on the frontier at N=256,
                   B=2048, float32, through solve_qp_batch_auto (plain):
@@ -107,7 +115,7 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   the inner solve's iterations per round, CG launches by
                   body, S against the default's (where it differs, within
                   1e-6 objective gap of the float64 solve);
- 13. config7    — bench_suite.py::config7 on the port's ungil_like (N=14,
+ 14. config7    — bench_suite.py::config7 on the port's ungil_like (N=14,
                   M=2, J=2, shortable) and sp500_like (N=263, condition
                   ~1e6-1e8) from ssqp_tpu_torch/utils/problems.py: the
                   coarse warm L-sweep (64 points), the coarse warm mu sweep
@@ -119,7 +127,7 @@ Phases (one line each; any failure raises and the exit code is not 0):
                   and audited against the port's float64 solve on the card:
                   objective gap and ||x - z||_inf quantiles, refined max gap
                   < 1e-6;
- 14. config8    — bench_suite.py::config8's frontier at N=512 and N=1024,
+ 15. config8    — bench_suite.py::config8's frontier at N=512 and N=1024,
                   B=8192, float32, through solve_qp_batch_auto (waves=8
                   and the N >= 512 tail): all solved, the tail's passes
                   and accepted corrections, CG launches by body, 256
@@ -128,7 +136,7 @@ Phases (one line each; any failure raises and the exit code is not 0):
 
 Each phase's host wall time is printed as a [wall] line. Then one JSON
 line with the refined phase's numbers, the LP routes', the outer layers',
-phases 12-14's and the wall times (``wall_s``),
+phases 13-15's and the wall times (``wall_s``),
 one JSON line with the kernel table (each kernel's launches on each route, for the Cholesky kernel also by (B, n, K) with the body each shape
 takes, its worst error against the plain version, its time, the plain
 version's, the library call's, the bound and ptxas's registers and spills),
@@ -279,12 +287,12 @@ def phase_kernel(torch):
                   200)] + [
         (f"N={N_INEQ} K={K_INEQ} batch={b} shared V", N_INEQ, K_INEQ, b,
          False, 96) for b in (B_INEQ // 4, B_INEQ)] + [
-        # config 8 (phase 14): the batch at N=512 and 1024 and a tail pass
+        # config 8 (phase 15): the batch at N=512 and 1024 and a tail pass
         (f"N={n} K=2 batch={C8_B} shared V", n, 2, C8_B, False, 64)
         for n in C8_N] + [
         (f"N=1024 K=2 batch={C8_B // 4} shared V", 1024, 2, C8_B // 4,
          False, 96)]
-    # config 7 (phase 13): one instance's rows, 1+R = 6 at ungil's N=14 and
+    # config 7 (phase 14): one instance's rows, 1+R = 6 at ungil's N=14 and
     # 3 at sp500's N=263 (the tensor-core body's 8-wide tile, ragged k-tail)
     c7_rows = [("N=14 K=6 batch=1 shared V", 14, 6, 1, False, 200),
                ("N=263 K=3 batch=1 shared V", 263, 3, 1, False, 200)]
@@ -579,6 +587,162 @@ def phase_chol(torch):
     return worst, times
 
 
+# The simplex kernel at lp-mixed256's shape: config 2's mixed batch of
+# B_LP = 256 (R = 25, Nt = 245), float32, four batches (phase 11's seeds),
+# and the same LPs cast to float64
+SIMPLEX_BATCHES = 4
+SIMPLEX_AGREE = 0.99  # float32: share of instances with B, S and it equal
+SIMPLEX_OBJ_REL = 1e-6  # float32: objective, kernel against the host loop
+
+
+def simplex_bound(its, R, Nt, B, peak=PEAK_F32_FLOPS):
+    """One launch of the simplex kernel for B instances that take ``its``
+    steps in all: per step 3 R^3 FMA (the Newton refresh's two products
+    and the drift's), 2 R Nt (A' w, A x_N) and 3 R^2 (w, qv, p), two FLOPs
+    each, at ``peak`` (by default the card's float32 rate, the data's type,
+    which equals its float64 tensor-core rate); A, c, d, u, x, the column
+    norms, invB, b, B, S and the real mask read once, x, B, S, status and
+    it written once, float32."""
+    flops = 2 * its * (3 * R**3 + 2 * R * Nt + 3 * R * R)
+    nbytes = B * (4 * (R * Nt + 5 * Nt + R * R + R) + 8 * R + 2 * Nt + 1) \
+        + B * (4 * Nt + 8 * R + Nt + 8)
+    return bound(flops, nbytes, peak)
+
+
+def phase_simplex(torch):
+    """The simplex kernel (ops/csrc/simplex.cu) against the host loop on the
+    same card tensors at lp-mixed256's shape, Phase 1 and Phase 2 of each
+    batch: float32 statuses equal, B, S and it equal on >= 99% of
+    instances, objectives within 1e-6 relative where optimal; float64 all
+    equal, x within 1e-9. Then one batch's launches through
+    solve_lp_batch_auto (two, one a phase; the registry's record), and the
+    times of one batch's Phase-1 and Phase-2 launches (CUDA events), the
+    host loop's (host clock, it syncs every trip) and the bound at the
+    float32 rate, with the float64 rate outside the tensor cores (the
+    kernel's arithmetic, DFMA) beside."""
+    from ssqp_tpu_torch import Settings
+    from ssqp_tpu_torch.ops import simplex as ks
+    from ssqp_tpu_torch.parallel.batch import solve_lp_batch_auto
+    from ssqp_tpu_torch.solvers import lp as tlp
+    from ssqp_tpu_torch.solvers import simplex as ts
+    from ssqp_tpu_torch.utils import diagnostics
+
+    def phases(P, st):
+        prep = tlp._lp_prep(P.A, P.G, P.b, P.g, P.d, P.u, st, B_LP)
+        A1, std = prep.A1, prep.std
+        Bn, R, Nt = A1.shape
+        z = lambda n, v: torch.full((Bn, n), v, dtype=A1.dtype,
+                                    device=A1.device)
+        c1 = torch.cat([z(Nt - R, 0.0), z(R, 1.0)], 1)
+        start = tlp._lp_phase1(prep, st)
+        u2, real2 = tlp._phase2_bounds(prep)
+        c0 = tlp._lp_cost(prep, P.c, P.N, P.J, True)
+        return ((c1, A1, prep.b0p, std.d1, std.u1, std.B0, std.S0, std.d1,
+                 std.real),
+                (c0, A1, prep.b0p, std.d1, u2, start.B, start.S, start.x,
+                 real2))
+
+    rows_eq = lambda a, b: (a == b).reshape(a.shape[0], -1).all(1)
+    checks = []
+    for i in range(SIMPLEX_BATCHES):
+        P32, _ = lp_problem(torch, torch.float32, "mixed", i, B_LP)
+        for P in (P32, P32.astype(torch.float64)):
+            st = Settings.for_dtype(P.c.dtype)
+            for ph, args in zip((1, 2), phases(P, st)):
+                n0 = ks.LAUNCHES
+                k = ts.bounded_simplex(*args, tol=st.tol,
+                                       max_iter=st.max_iter)
+                h = ts.bounded_simplex_loop(*args, tol=st.tol,
+                                            max_iter=st.max_iter)
+                torch.cuda.synchronize()
+                if ks.LAUNCHES != n0 + 1:
+                    raise RuntimeError("simplex: the kernel did not launch")
+                agree = {n: float(rows_eq(k[j], h[j]).float().mean())
+                         for n, j in (("B", 2), ("S", 3), ("it", 4))}
+                fk = (args[0].double() * k[1].double()).sum(1)
+                fh = (args[0].double() * h[1].double()).sum(1)
+                opt = (h[0] == 1) | (h[0] == 2)
+                rel = float(((fk - fh).abs() / fh.abs().clamp(min=1.0))[opt]
+                            .max()) if bool(opt.any()) else 0.0
+                dx = float((k[1].double() - h[1].double()).abs().max())
+                f64 = P.c.dtype == torch.float64
+                c = {"batch": i, "phase": ph, "dtype": str(P.c.dtype)[6:],
+                     "status_equal": bool(torch.equal(k[0], h[0])),
+                     "agree": agree, "max_obj_rel": rel, "max_dx": dx,
+                     "optimal": int(opt.sum()),
+                     "steps_mean": float(k[4].float().mean()),
+                     "steps_max": int(k[4].max())}
+                checks.append(c)
+                log("simplex", f"batch {i} phase {ph} {c['dtype']}: statuses "
+                    f"equal {c['status_equal']}, agree {agree}, objective "
+                    f"{rel:.2e}, max|dx| {dx:.2e}, optimal {c['optimal']}/"
+                    f"{B_LP}, steps mean {c['steps_mean']:.1f} max "
+                    f"{c['steps_max']}")
+                ok = c["status_equal"] and c["optimal"] == B_LP and (
+                    (min(agree.values()) == 1.0 and dx <= F64_TOL) if f64
+                    else (min(agree.values()) >= SIMPLEX_AGREE
+                          and rel <= SIMPLEX_OBJ_REL))
+                if not ok:
+                    raise RuntimeError(f"simplex kernel disagrees with the "
+                                       f"host loop: {c}")
+
+    # launches per LP batch, and the registry's record while a profiler runs
+    P, sh = lp_problem(torch, torch.float32, "mixed", 0, B_LP)
+    s32 = Settings.for_dtype(torch.float32)
+    _, launches = counted(torch, lambda: solve_lp_batch_auto(P, s32, sh))
+    diagnostics.clear_counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        solve_lp_batch_auto(P, s32, sh)
+        rec = diagnostics.counters()
+    diagnostics.clear_counters()
+    key = (B_LP, R_LP, NT_LP, "float32")
+    if launches["simplex"] != 2 or rec.get("simplex.launches") != {key: 2} \
+            or rec.get("simplex_step") != 2:
+        raise RuntimeError(f"simplex: launches {launches}, registry "
+                           f"{rec.get('simplex.launches')}, trips "
+                           f"{rec.get('simplex_step')}")
+    log("simplex", f"solve_lp_batch_auto B={B_LP}: launches {launches}; "
+        f"registry simplex.launches {rec['simplex.launches']}, "
+        f"simplex_step {rec['simplex_step']}")
+
+    # times of batch 0's two phases, float32
+    times = {}
+    for ph in (1, 2):
+        P32, _ = lp_problem(torch, torch.float32, "mixed", 0, B_LP)
+        args = phases(P32, s32)[ph - 1]
+        c, A, b, d, u, B0, S0, x0, real = args
+        Bn, R, Nt = A.shape
+        cA_safe, B, invB = ts._start(A, B0)
+        # the kernel overwrites the basis it is given: each call its copy
+        kern = lambda: ks.simplex_run(c, A, b, d, u, real, cA_safe, invB,
+                                      B.clone(), S0, x0, None, tol=s32.tol,
+                                      max_iter=s32.max_iter)
+        its = int(kern()[4].sum())
+        plain = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ts.bounded_simplex_loop(*args, tol=s32.tol, max_iter=s32.max_iter)
+            torch.cuda.synchronize()
+            plain.append(1e3 * (time.perf_counter() - t))
+        runs = [cuda_time(torch, kern) for _ in range(2)]
+        b_ms, b_by = simplex_bound(its, R, Nt, Bn)
+        b_dfma, by_dfma = simplex_bound(its, R, Nt, Bn, PEAK_F64_FLOPS)
+        tm = {"ms": min(runs), "plain_ms": min(plain), "bound_ms": b_ms,
+              "bound_by": b_by, "bound_dfma_ms": b_dfma,
+              "bound_dfma_by": by_dfma, "steps": its}
+        times[f"phase {ph}"] = tm
+        log("simplex", f"f32 (B, R, Nt) = ({Bn}, {R}, {Nt}) phase {ph}, "
+            f"{its} instance steps: kernel {tm['ms']:.4f} ms (CUDA events; "
+            f"runs {runs[0]:.4f}/{runs[1]:.4f}), host loop "
+            f"{tm['plain_ms']:.1f} ms (host clock; runs {plain[0]:.1f}/"
+            f"{plain[1]:.1f}), bound {b_ms:.5f} ms ({b_by}, kernel at "
+            f"{100 * b_ms / tm['ms']:.2f}%; DFMA {b_dfma:.5f} ms, "
+            f"{100 * b_dfma / tm['ms']:.2f}%)")
+    return checks, times, launches
+
+
 def bench_problem(torch, dtype, N=N_MAIN):
     from ssqp_tpu_torch import make_qp
 
@@ -637,13 +801,15 @@ class Spy:
 def counted(torch, fn):
     """(result, launches) of one call with every kernel count set to 0
     just before and read just after: the launches as the kernel modules
-    count them (``cg.LAUNCHES``, ``chol.LAUNCHES``), by CG body (the
+    count them (``cg.LAUNCHES``, ``chol.LAUNCHES``, ``simplex.LAUNCHES``),
+    by CG body (the
     library's rule, ``cg.body``, on each launch's rows, width, dtype and
     V) and by Cholesky (B, n, K), from spies on the two launch wrappers.
     No profiler records, so the call runs the instances users run."""
     from collections import Counter
 
     from ssqp_tpu_torch.ops import cg, chol, kkt
+    from ssqp_tpu_torch.ops import simplex as ks
 
     cg_keys, chol_keys = Counter(), Counter()
 
@@ -666,7 +832,7 @@ def counted(torch, fn):
     spies = (Spy(cg, "cg_padded_rows", run=cg_run),
              Spy(kkt, "chol_solve_batch", run=chol_run))
     torch.cuda.synchronize()
-    cg.LAUNCHES = chol.LAUNCHES = 0
+    cg.LAUNCHES = chol.LAUNCHES = ks.LAUNCHES = 0
     try:
         out = fn()
         torch.cuda.synchronize()
@@ -683,7 +849,7 @@ def counted(torch, fn):
                            f"of {cg.LAUNCHES} and {chol.LAUNCHES}")
     return out, {"cg_rows": cg.LAUNCHES, "cg_by_body": dict(by_body),
                  "chol_solve": chol.LAUNCHES,
-                 "chol_by_shape": dict(chol_keys)}
+                 "chol_by_shape": dict(chol_keys), "simplex": ks.LAUNCHES}
 
 
 def run_route(torch, fn, Qb, B, tag, counters):
@@ -972,6 +1138,8 @@ def phase_ineq_audit(torch, res):
 # equalities, J=20 inequalities, 0 <= x <= 2; its criss-cross column runs
 # N=40, M=4, J=8
 N_LP, M_LP, J_LP = 100, 5, 20
+R_LP = M_LP + J_LP  # the standardized rows and columns (lp-mixed256's)
+NT_LP = 2 * N_LP + J_LP + R_LP
 N_CC, M_CC, J_CC = 40, 4, 8
 B_LP, B_LP_BIG = 256, 4096
 LP_F32_REL = 5e-5  # float32 vs float64 objective (tests/test_lp.py:205)
@@ -1186,7 +1354,7 @@ def phase_lp(torch):
     return out, counters
 
 
-# phase 11: the outer layers (frontier sweeps, diff, Model and MPS,
+# phase 12: the outer layers (frontier sweeps, diff, Model and MPS,
 # diagnostics, the sharded solves, warm-up)
 B_SWEEP, B_WAVES_SWEEP, N_WARM = 2048, 8192, 128
 N_AUDIT = 256
@@ -1657,7 +1825,7 @@ def phase_outer(torch):
             "sharded": sharded, "warmup": warm}, counters
 
 
-# ---- phase 12: the PDAS variants --------------------------------------
+# ---- phase 13: the PDAS variants --------------------------------------
 
 PDAS_FLAGS = ("default", "pdas_pcg", "pdas_cheb")
 
@@ -1764,7 +1932,7 @@ def phase_pdas(torch):
     return out, counters
 
 
-# ---- phase 13: bench_suite.py::config7 --------------------------------
+# ---- phase 14: bench_suite.py::config7 --------------------------------
 
 C7_PTS, C7_FINE, C7_COARSE, C7_AUDIT = 16, 256, 64, 96
 
@@ -1886,7 +2054,7 @@ def phase_config7(torch):
     return out, counters
 
 
-# ---- phase 14: bench_suite.py::config8 --------------------------------
+# ---- phase 15: bench_suite.py::config8 --------------------------------
 
 
 def phase_config8(torch):
@@ -2002,6 +2170,7 @@ def main():
 
     worst, ktimes, exits = wall(phase_kernel)
     chol_worst, ctimes = wall(phase_chol)
+    sx_checks, sx_times, sx_launches = wall(phase_simplex)
     res_auto, res_big, main_launches = wall(phase_main)
     wall(phase_audit, res_auto, B_AUTO)
     wall(phase_audit, res_big, B_BIG)
@@ -2022,8 +2191,9 @@ def main():
     routes.update({f"outer {tag}": c for tag, c in outer_launches.items()})
     for launches in (pdas_launches, c7_launches, c8_launches):
         routes.update(launches)
+    routes["simplex B=256 (solve_lp_batch_auto)"] = sx_launches
     paths = {k: {route: c[k] for route, c in routes.items()}
-             for k in ("cg_rows", "chol_solve")}
+             for k in ("cg_rows", "chol_solve", "simplex")}
     by_body = {route: c["cg_by_body"] for route, c in routes.items()
                if c.get("cg_by_body")}
     print(json.dumps({"refined": refined, "lp": lp,
@@ -2089,6 +2259,26 @@ def main():
         "ptxas": [{"kernel": k, "registers": r, "spill_stores": st,
                    "spill_loads": ld} for k, r, st, ld, _ in ptxas
                   if "chol_" in k],
+    }, {
+        "name": "simplex",
+        "route": "cuda",
+        "source": "ssqp_tpu_torch/ops/csrc/simplex.cu",
+        "replaces": "none: the host loop of solvers/simplex.py (the JAX "
+                    "package's lax.while_loop under vmap)",
+        "launches": sum(paths["simplex"].values()),
+        "launches_by_path": paths["simplex"],
+        "checks": sx_checks,
+        "shape": "(B, R, Nt) = (%d, %d, %d), f32, one request's phases"
+                 % (B_LP, R_LP, NT_LP),
+        "phases": sx_times,
+        "ms": sum(t["ms"] for t in sx_times.values()),
+        "plain_ms": sum(t["plain_ms"] for t in sx_times.values()),
+        "bound_ms": sum(t["bound_ms"] for t in sx_times.values()),
+        "bound_dfma_ms": sum(t["bound_dfma_ms"] for t in sx_times.values()),
+        "library_ms": None,
+        "ptxas": [{"kernel": k, "registers": r, "spill_stores": st,
+                   "spill_loads": ld} for k, r, st, ld, _ in ptxas
+                  if "simplex" in k],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

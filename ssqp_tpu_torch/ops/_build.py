@@ -24,7 +24,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = _CSRC.parents[2] / "build"  # listed in .gitignore
-_SOURCES = ("cg.cu", "chol.cu")
+_SOURCES = ("cg.cu", "chol.cu", "simplex.cu")
 # No --use_fast_math: it approximates divisions and flushes denormals,
 # which breaks the 1e-30 and finfo.tiny floors the solver relies on.
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,6 +77,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("ssqp_chol_solve_f32", "ssqp_chol_solve_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, i32, i32, i32, p]  # A, RHS, X, B, n, K, stream
+        fn.restype = i32
+    lib.ssqp_simplex_smem_bytes.argtypes = [i32, i32, i32]  # R, Nt, f64
+    lib.ssqp_simplex_smem_bytes.restype = i64
+    for name in ("ssqp_simplex_f32", "ssqp_simplex_f64"):
+        fn = getattr(lib, name)
+        # c, A, b, d, u, real, cA, invB, pre_done, B, S, x, status, it, Bn,
+        # R, Nt, tol, drift tol, max_iter, stream
+        fn.argtypes = [p] * 14 + [i32, i32, i32, ctypes.c_double,
+                                  ctypes.c_double, i32, p]
         fn.restype = i32
 
 

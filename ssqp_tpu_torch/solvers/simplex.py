@@ -20,9 +20,15 @@ Status codes: 1 unique, 2 infinitely many, 3 unbounded, -1 numerical error,
 loop of solvers/cclp.py, runs through :func:`run_chunked`: eight masked
 steps between host checks of the live set.
 
-While a profiler records, each trip of :func:`bounded_simplex`'s host loop
-(with the ``nonzero`` that decides it) is the span ``ssqp.simplex_step``
-and the counter ``simplex.instance_pivots`` adds the instances it steps;
+:func:`bounded_simplex` runs its whole loop as one launch of the CUDA
+kernel ``ops/csrc/simplex.cu`` where ``ops/simplex.py::uses_kernel`` takes
+the call (CUDA tensors, the Dantzig rule, an instance within a block's
+shared memory), else as the host loop :func:`bounded_simplex_loop`.
+
+While a profiler records, each trip of the host loop (with the ``nonzero``
+that decides it), and each kernel launch, is the span ``ssqp.simplex_step``;
+the counter ``simplex.instance_pivots`` adds the instances a trip steps, or
+the launch's steps summed on the device;
 :func:`dual_simplex_bounded`'s trips are ``ssqp.dual_simplex_step`` and
 its steps ``dual_simplex.instance_pivots``.
 """
@@ -33,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from ssqp_tpu_torch.ops import simplex as simplex_kernel
 from ssqp_tpu_torch.types import DN, IN, UP
 from ssqp_tpu_torch.utils.diagnostics import (
     count, count_device, recording, span)
@@ -161,6 +168,18 @@ def _simplex_step(c, Amat, b, d, u, real, cA_safe, ud, fu, B, S, x, invB, it,
     return B1, S1, x1, invB1, done, status
 
 
+def _start(Amat, B0):
+    """The column norms (1 where 0), the int64 basis and its inverse."""
+    Bn, R, _ = Amat.shape
+    cA = torch.sqrt(torch.sum(Amat * Amat, dim=1))
+    cA_safe = torch.where(cA > 0, cA, torch.ones_like(cA))
+    B = B0.to(torch.int64).clone(memory_format=torch.contiguous_format)
+    A_B0 = torch.gather(Amat, 2, B.unsqueeze(1).expand(Bn, R, R))
+    # a singular start gives non-finite entries (no error), as XLA's inverse
+    # does; the loop's first step then exits -1
+    return cA_safe, B, torch.linalg.inv_ex(A_B0)[0]
+
+
 def bounded_simplex(c, Amat, b, d, u, B0, S0, x0, real, *, tol, max_iter,
                     rule: str = "dantzig", pre_done=None):
     """Run the bounded-variable simplex on a batch. Returns
@@ -170,24 +189,45 @@ def bounded_simplex(c, Amat, b, d, u, B0, S0, x0, real, *, tol, max_iter,
     (B, R, Nt); b (B, R); B0 (B, R) int64 basis; S0 (B, Nt) int8; real
     (B, Nt) bool masks padded dummy columns. ``pre_done`` (B,) bool marks
     instances whose result the caller discards: they start done with status
-    1 and cost nothing. Each iteration runs on the still-running instances
-    only; their iteration counters advance independently."""
+    1 and cost nothing. Each instance's iteration counter advances
+    independently.
+
+    Where ``ops/simplex.py::uses_kernel`` takes the call (CUDA tensors, the
+    Dantzig rule, an instance's state within a block's shared memory), the
+    whole loop is one kernel launch (the span ``ssqp.simplex_step``, one
+    host trip); otherwise :func:`bounded_simplex_loop` runs it on the
+    host."""
+    Bn, R, Nt = Amat.shape
+    if not simplex_kernel.uses_kernel(c.device, rule, R, Nt, c.dtype):
+        return bounded_simplex_loop(c, Amat, b, d, u, B0, S0, x0, real,
+                                    tol=tol, max_iter=max_iter, rule=rule,
+                                    pre_done=pre_done)
+    cA_safe, B, invB = _start(Amat, B0)
+    with span("simplex_step"):
+        out = simplex_kernel.simplex_run(
+            c, Amat, b, d, u, real, cA_safe, invB, B, S0, x0, pre_done,
+            tol=float(tol), max_iter=max_iter)
+    if recording():
+        count_device("simplex.instance_pivots",
+                     out[4].sum(dtype=torch.int64))
+    return out
+
+
+def bounded_simplex_loop(c, Amat, b, d, u, B0, S0, x0, real, *, tol,
+                         max_iter, rule: str = "dantzig", pre_done=None):
+    """:func:`bounded_simplex` as a host loop: each trip steps the
+    still-running instances only (one ``nonzero`` decides them). The CPU's
+    route, that of the rules and shapes the kernel does not take, and the
+    plain version the kernel's card tests hold it to."""
     Bn, R, Nt = Amat.shape
     dtype = c.dtype
     dev = c.device
     tol = float(tol)
-    cA = torch.sqrt(torch.sum(Amat * Amat, dim=1))
-    cA_safe = torch.where(cA > 0, cA, torch.ones_like(cA))
+    cA_safe, B, invB = _start(Amat, B0)
     ud = u - d
     fu = torch.isfinite(u)
-
-    B = B0.to(torch.int64).clone()
     S = S0.to(torch.int8).clone()
     x = x0.to(dtype).clone()
-    A_B0 = torch.gather(Amat, 2, B.unsqueeze(1).expand(Bn, R, R))
-    # a singular start gives non-finite entries (no error), as XLA's inverse
-    # does; the loop's first step then exits -1
-    invB = torch.linalg.inv_ex(A_B0)[0]
     it = torch.zeros(Bn, dtype=torch.int32, device=dev)
     pd = (torch.zeros(Bn, dtype=torch.bool, device=dev) if pre_done is None
           else pre_done.to(torch.bool).clone())

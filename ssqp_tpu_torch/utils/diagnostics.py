@@ -13,8 +13,9 @@ range named ``ssqp.<name>`` on the profiler's clock, and counts its own
 openings in the registry under ``<name>``. A counter adds a value the host
 already holds (:func:`count`) or a device tensor (:func:`count_device`),
 summed on the device and read once by :func:`counters`: no counter adds a
-host synchronisation. The CG and Cholesky kernels add one record per
-launch shape (:func:`cg_launch`, :func:`chol_launch`). :func:`trace` clears
+host synchronisation. The CG, Cholesky and simplex kernels add one record
+per launch shape (:func:`cg_launch`, :func:`chol_launch`,
+:func:`simplex_launch`). :func:`trace` clears
 the registry when it starts; so does :func:`clear_counters`.
 """
 
@@ -46,6 +47,7 @@ SPAN_PREFIX = "ssqp."
 _counts = {}  # name -> int (host) or 0-dim tensor (device)
 _cg = {}  # (C, N, dtype, shared V, body) -> [launches, V matrices, steps]
 _chol = {}  # (B, n, K, dtype, body) -> launches
+_simplex = {}  # (B, R, Nt, dtype) -> launches
 _OFF = contextlib.nullcontext()  # what a span site enters while off
 
 
@@ -94,12 +96,19 @@ def chol_launch(B: int, n: int, K: int, dtype, body: str) -> None:
     _chol[key] = _chol.get(key, 0) + 1
 
 
+def simplex_launch(B: int, R: int, Nt: int, dtype) -> None:
+    """Record one simplex kernel launch by shape and dtype."""
+    key = (B, R, Nt, str(dtype).replace("torch.", ""))
+    _simplex[key] = _simplex.get(key, 0) + 1
+
+
 def counters() -> dict:
     """A copy of the registry, device values read (one synchronisation,
     here and not in the program): counter and span names to numbers;
     ``"cg.launches"`` maps (C, N, dtype, shared V, body) to ``{"launches",
     "matrices", "row_steps"}``, ``"chol.launches"`` maps (B, n, K, dtype,
-    body) to launches, each present once a launch was recorded."""
+    body) to launches, ``"simplex.launches"`` (B, R, Nt, dtype) to
+    launches, each present once a launch was recorded."""
     out = {k: int(v) if isinstance(v, torch.Tensor) else v
            for k, v in _counts.items()}
     if _cg:
@@ -108,6 +117,8 @@ def counters() -> dict:
             for k, (n, m, s) in _cg.items()}
     if _chol:
         out["chol.launches"] = dict(_chol)
+    if _simplex:
+        out["simplex.launches"] = dict(_simplex)
     return out
 
 
@@ -116,6 +127,7 @@ def clear_counters() -> None:
     _counts.clear()
     _cg.clear()
     _chol.clear()
+    _simplex.clear()
 
 
 class KKTReport(NamedTuple):
